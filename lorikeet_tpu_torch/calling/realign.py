@@ -1,0 +1,95 @@
+"""Realign reads to their best haplotype.
+
+Counterpart of lorikeet_tpu/calling/realign.py
+(assembly_based_caller_utils.rs:208-246 realign_reads_to_their_best_haplotype):
+each read is Smith-Waterman-aligned to the haplotype with its best
+likelihood and the alignment is composed through the haplotype-vs-reference
+CIGAR.  The CIGAR composition helpers are jax-free and imported from the
+JAX package; this module owns the realignment loop, whose best-haplotype
+search comes from the port's likelihoods and whose SW runs on the native
+host aligner.
+The device SW (the TPU package's ``ops/sw_pallas.py``) is not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from lorikeet_tpu.calling.realign import _padded_hap_cigar, compose_to_reference
+from lorikeet_tpu.ops.smith_waterman import (
+    ALIGNMENT_TO_BEST_HAPLOTYPE_SW_PARAMETERS, OverhangStrategy, align,
+)
+from lorikeet_tpu_torch.calling.likelihoods import search_best_alleles
+
+
+def realign_reads_to_best_haplotype(likelihoods, haplotypes,
+                                    window_start: int,
+                                    use_cuda_sw: bool = False) -> int:
+    """Replace each evidence read with a copy realigned via its best
+    haplotype; returns the number of realigned reads.  ``haplotypes`` are
+    AssembledHaplotypes whose cigars are vs the padded window at
+    ``window_start``.  ``use_cuda_sw`` (batched device SW) raises
+    NotImplementedError: that kernel is not ported yet."""
+    if use_cuda_sw:
+        raise NotImplementedError(
+            "device Smith-Waterman is not ported yet; run without use_cuda_sw")
+    n = 0
+    ref_hap = next((h for h in haplotypes if h.is_ref), None)
+    ref_bases = (np.frombuffer(ref_hap.bases, np.uint8)
+                 if ref_hap is not None else None)
+    # pass 1: gather (hap, core read) SW jobs across all samples
+    jobs = []      # (sample, read_idx, hap, lead_s, tail_s, core_seq)
+    priority = np.array([(1 if h.is_ref else 0) - (len(h.cigar) - 1)
+                         for h in haplotypes], np.int64)
+    for s in likelihoods.samples:
+        mat = likelihoods.values[s]            # [haps, reads]
+        reads = likelihoods.reads_by_sample[s]
+        if mat.shape[1] == 0:
+            continue
+        # near-ties (within 0.2 log10) prefer the reference haplotype then
+        # fewer cigar elements (haplotype_alignment_tiebreaking_priority,
+        # assembly_based_caller_utils.rs:187-195)
+        best, _, _ = search_best_alleles(mat, priority)
+        for i, rec in enumerate(reads):
+            hap = haplotypes[int(best[i])]
+            if hap.is_ref:
+                continue                        # already ref-aligned
+            # soft clips are excluded from the SW and re-appended after
+            lead_s = rec.cigar[0][1] if rec.cigar and rec.cigar[0][0] == "S" \
+                else 0
+            tail_s = rec.cigar[-1][1] if len(rec.cigar) > 1 \
+                and rec.cigar[-1][0] == "S" else 0
+            core_seq = rec.seq[lead_s:len(rec.seq) - tail_s]
+            jobs.append((s, i, hap, lead_s, tail_s, core_seq))
+    if not jobs:
+        return 0
+
+    aligned = [align(hap.bases, core.tobytes(),
+                     ALIGNMENT_TO_BEST_HAPLOTYPE_SW_PARAMETERS,
+                     OverhangStrategy.SOFTCLIP)
+               for _, _, hap, _, _, core in jobs]
+
+    pad_cache = {}   # hap id -> pre-padded hap-vs-ref cigar
+    for (s, i, hap, lead_s, tail_s, core_seq), res in zip(jobs, aligned):
+        if res is None:
+            continue
+        cigar, offset = res
+        padded = pad_cache.get(id(hap))
+        if padded is None:
+            padded = pad_cache[id(hap)] = _padded_hap_cigar(hap.cigar)
+        new_pos, new_cigar = compose_to_reference(
+            cigar, offset, hap.cigar, window_start,
+            ref_bases=ref_bases, read_bases=core_seq,
+            padded_hap_cigar=padded)
+        if new_pos is None or not new_cigar:
+            continue
+        if lead_s:
+            new_cigar = [("S", lead_s)] + new_cigar
+        if tail_s:
+            new_cigar = new_cigar + [("S", tail_s)]
+        reads = likelihoods.reads_by_sample[s]
+        reads[i] = dataclasses.replace(
+            reads[i], pos=new_pos, cigar=new_cigar)
+        n += 1
+    return n

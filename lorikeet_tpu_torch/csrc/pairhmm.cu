@@ -1,0 +1,322 @@
+// Grouped pair-HMM forward for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel lorikeet_tpu/ops/pairhmm_pallas.py
+// `_kernel_grouped` (+ its shared sweep `_dp_sweep`): per (read, haplotype)
+// pair the log10 forward likelihood over an anti-diagonal wavefront, f32
+// with a power-of-two renormalisation every GROUP = 8 diagonals.  Inputs are
+// the grouped tables of ops/pairhmm_cuda.py:pack_grouped_inputs: table block
+// b sweeps the 32 read rows of tile tile_tab[b] against haplotype
+// hap_tab[b]; out[b * 32 + r] is the result for read row r of that tile.
+//
+// Numerics contract (same as the TPU kernel and the torch twin
+// pairhmm_sweep_torch): eps = expf(q * f32(-ln10/10)); mm = 1 - min(1,
+// eps_i + eps_d), im = 1 - eps_g, ii = dd = eps_g; prior 1 - eps on a
+// one-hot base-bit match, else eps * f32(1/3); D[0, j] = 1/hap_len; acc sums
+// M + I over the last row for j in 1..hap_len; after every 8 diagonals all
+// live state and acc are multiplied by 2^(127 - e), e the exponent of the
+// largest interior M/I/D (boundary D excluded) or acc, and ls += e - 127;
+// result = log10f(max(acc, FLT_MIN)) + ls * f32(log10 2).  Build without
+// --use_fast_math / -ftz: denormals and IEEE expf/log10f are kept (the TPU
+// flushes denormals; the deep rows where that shows fall below
+// F32_SUSPECT_LOG10 and are recomputed in f64 by the caller).
+//
+// What bounds it on this card.  The DP touches device memory only for its
+// u8 inputs (5 bytes per read base, once per block) and one f32 per pair,
+// against ~25 f32 operations per cell: it is bound by the FP32 pipes and by
+// the serial chain of diagonals inside each pair, not by HBM bytes.
+//
+// Design.  One CTA (4 warps) per table block, the haplotype's base bits in
+// shared memory; each warp sweeps one read of the 32-read tile at a time.
+// Lane l holds a contiguous strip of K = Rpad/32 read rows, so row i-1 sits
+// in the same lane except at the strip head, where __shfl_up_sync fetches
+// it (3 shuffles per diagonal).  Row i on diagonal d reads hap_s[d - i - 1]
+// directly.  The renormalisation max is a __shfl_xor_sync reduction.  Reads
+// up to 511 bases keep their strip in registers (K = 4, 8, 16 by template);
+// longer reads keep it in a global scratch slab per resident warp (L1/L2
+// cached), a strip of ceil((R+1)/32) rows sized to each read, with a fixed
+// grid of CTAs striding over the blocks, so any read length runs on the
+// device.  Pad rows (read length 0) are skipped.  A pair
+// stops at the first multiple of 8 diagonals >= R + H: the TPU kernel's
+// further padded diagonals only rescale by exact powers of two.
+// Not done yet (later work): TMA/cp.async staging of the inputs, warp
+// specialisation, a shift register instead of the strided hap_s loads.
+
+#include <cfloat>
+#include <cstddef>
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kTile = 32;      // read rows per table block (GROUP_BLOCK_B)
+constexpr int kWarps = 4;      // warps per CTA
+constexpr int kThreads = kWarps * 32;
+constexpr int kGroup = 8;      // diagonals per renormalisation (GROUP)
+constexpr int kMaxRegK = 16;   // longest register strip (Rpad 512)
+constexpr int kLongCtas = 264; // CTAs of the scratch-strip (long read) grid
+constexpr unsigned kFull = 0xffffffffu;
+
+constexpr float kLn10Over10 = -0x1.d791c6p-3f;  // f32(-ln(10) / 10)
+constexpr float kThird = 0x1.555556p-2f;        // f32(1 / TRISTATE_CORRECTION)
+constexpr float kLog10Of2 = 0x1.344136p-2f;     // f32(log10(2))
+
+// per read row: the phred-derived coefficients, the one-hot read base bits
+// (stored as float bits), and the DP state: M/I/D on diagonal d-1, and the
+// row ABOVE's M and I+D on diagonal d-2 (the M recurrence's inputs)
+enum Field { kEq, kMi, kMd, kGg, kRb, kM, kI, kD, kPm, kPs, kNumFields };
+
+// Strip of K read rows held by one lane.  KC > 0: in registers (every loop
+// over k is unrolled, so v[][] never leaves the register file).  KC == 0:
+// in global scratch, field-major so that a warp's accesses coalesce.
+template <int KC>
+struct Strip {
+  float v[kNumFields][KC];
+  __device__ Strip(float*, int, int) {}
+  __device__ float& at(int f, int k) { return v[f][k]; }
+  __device__ float get(int f, int k) const {  // runtime k: select, no spill
+    float out = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) out = (kk == k) ? v[f][kk] : out;
+    return out;
+  }
+};
+
+template <>
+struct Strip<0> {
+  float* base;
+  int K;
+  __device__ Strip(float* slab, int k_rows, int lane)
+      : base(slab + lane), K(k_rows) {}
+  __device__ float& at(int f, int k) {
+    return base[(static_cast<size_t>(f) * K + k) * 32];
+  }
+  __device__ float get(int f, int k) { return at(f, k); }
+};
+
+template <int KC>
+__device__ float sweep(Strip<KC>& st, const int K, const int lane,
+                       const int R, const int H,
+                       const int* __restrict__ hap_s,
+                       const int* __restrict__ lut,
+                       const uint8_t* __restrict__ q,
+                       const uint8_t* __restrict__ iq,
+                       const uint8_t* __restrict__ dq,
+                       const uint8_t* __restrict__ gq,
+                       const uint8_t* __restrict__ rd) {
+  const int KK = KC > 0 ? KC : K;
+  // prologue: phred bytes -> probabilities, once per (read, block); plane
+  // lane i holds read base i-1, lane 0 is the boundary row
+#pragma unroll
+  for (int k = 0; k < KK; ++k) {
+    const int i = lane * KK + k;
+    const bool ok = i >= 1 && i <= R;
+    st.at(kEq, k) = ok ? expf(static_cast<float>(q[i]) * kLn10Over10) : 0.f;
+    st.at(kMi, k) = ok ? expf(static_cast<float>(iq[i]) * kLn10Over10) : 0.f;
+    st.at(kMd, k) = ok ? expf(static_cast<float>(dq[i]) * kLn10Over10) : 0.f;
+    st.at(kGg, k) = ok ? expf(static_cast<float>(gq[i]) * kLn10Over10) : 0.f;
+    st.at(kRb, k) = __int_as_float(ok ? lut[rd[i]] : 0);
+    st.at(kM, k) = 0.f;
+    st.at(kI, k) = 0.f;
+    st.at(kD, k) = 0.f;
+    st.at(kPm, k) = 0.f;
+    st.at(kPs, k) = 0.f;
+  }
+  float bval = 1.f / static_cast<float>(H > 0 ? H : 1);
+  if (lane == 0) st.at(kD, 0) = bval;     // diagonal 0 holds cell (0, 0)
+  float acc = 0.f;
+  int ls = 0;
+  const int end_lane = R / KK;
+  const int end_k = R - end_lane * KK;
+  const int ndiag = (R + H + kGroup - 1) / kGroup * kGroup;
+
+  for (int d = 1; d <= ndiag; ++d) {
+    // the row above each strip head, on diagonal d-1
+    const float up_m = __shfl_up_sync(kFull, st.at(kM, KK - 1), 1);
+    const float up_i = __shfl_up_sync(kFull, st.at(kI, KK - 1), 1);
+    const float up_d = __shfl_up_sync(kFull, st.at(kD, KK - 1), 1);
+    // bottom-up, so row k-1 still holds diagonal d-1 when row k reads it
+#pragma unroll
+    for (int k = KK - 1; k >= 0; --k) {
+      const int ka = k > 0 ? k - 1 : 0;
+      const float am = k > 0 ? st.at(kM, ka) : up_m;
+      const float ai = k > 0 ? st.at(kI, ka) : up_i;
+      const float ad = k > 0 ? st.at(kD, ka) : up_d;
+      const int i = lane * KK + k;
+      const int hj = d - i - 1;                    // haplotype base index
+      const int hb = static_cast<unsigned>(hj) < static_cast<unsigned>(H)
+                         ? hap_s[hj] : 0;
+      const float eq = st.at(kEq, k);
+      const float mi = st.at(kMi, k);
+      const float md = st.at(kMd, k);
+      const float gg = st.at(kGg, k);
+      const float prior =
+          (__float_as_int(st.at(kRb, k)) & hb) ? 1.f - eq : eq * kThird;
+      const float mm = 1.f - fminf(1.f, mi + md);
+      const float m_new =
+          prior * (st.at(kPm, k) * mm + st.at(kPs, k) * (1.f - gg));
+      const float i_new = am * mi + ai * gg;
+      const float d_new = st.at(kM, k) * md + st.at(kD, k) * gg;
+      st.at(kPm, k) = am;
+      st.at(kPs, k) = ai + ad;
+      st.at(kM, k) = m_new;
+      st.at(kI, k) = i_new;
+      st.at(kD, k) = d_new;
+    }
+    if (lane == 0) {                              // boundary row 0
+      st.at(kM, 0) = 0.f;
+      st.at(kI, 0) = 0.f;
+      st.at(kD, 0) = bval;
+    }
+    if (lane == end_lane) {
+      const int j = d - R;
+      if (j >= 1 && j <= H) acc += st.get(kM, end_k) + st.get(kI, end_k);
+    }
+    if ((d & (kGroup - 1)) == 0) {
+      float peak = acc;
+#pragma unroll
+      for (int k = 0; k < KK; ++k) {
+        const float dv = (lane == 0 && k == 0) ? 0.f : st.at(kD, k);
+        peak = fmaxf(peak, fmaxf(st.at(kM, k), fmaxf(st.at(kI, k), dv)));
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        peak = fmaxf(peak, __shfl_xor_sync(kFull, peak, off));
+      if (!(peak > 0.f)) peak = 1.f;
+      const int e = (__float_as_int(peak) >> 23) & 0xFF;
+      const float inv = __int_as_float((254 - e) << 23);   // 2^(127 - e)
+#pragma unroll
+      for (int k = 0; k < KK; ++k) {
+        st.at(kM, k) *= inv;
+        st.at(kI, k) *= inv;
+        st.at(kD, k) *= inv;
+        st.at(kPm, k) *= inv;
+        st.at(kPs, k) *= inv;
+      }
+      acc *= inv;
+      bval *= inv;
+      ls += e - 127;
+    }
+  }
+  const float total = __shfl_sync(kFull, acc, end_lane);
+  return log10f(fmaxf(total, FLT_MIN)) + static_cast<float>(ls) * kLog10Of2;
+}
+
+template <int KC>
+__global__ void __launch_bounds__(kThreads)
+grouped_kernel(const int* __restrict__ tile_tab,
+               const int* __restrict__ hap_tab,
+               const int* __restrict__ hap_lens,
+               const uint8_t* __restrict__ quals,
+               const uint8_t* __restrict__ ins_q,
+               const uint8_t* __restrict__ del_q,
+               const uint8_t* __restrict__ gcp_q,
+               const uint8_t* __restrict__ read_u8,
+               const int* __restrict__ read_lens,
+               const uint8_t* __restrict__ haps,
+               const int* __restrict__ base_bits,
+               float* __restrict__ scratch,
+               int nblocks, int rpad, int hpad,
+               float* __restrict__ out) {
+  extern __shared__ int hap_s[];                  // [hpad] base bits
+  __shared__ int lut[256];
+  for (int t = threadIdx.x; t < 256; t += blockDim.x) lut[t] = base_bits[t];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* slab = KC > 0 ? nullptr
+      : scratch + (static_cast<size_t>(blockIdx.x) * kWarps + warp)
+                  * static_cast<size_t>(rpad) * kNumFields;
+  for (int b = blockIdx.x; b < nblocks; b += gridDim.x) {
+    const int h = hap_tab[b];
+    const int H = hap_lens[h];
+    __syncthreads();          // lut loaded / previous block done with hap_s
+    for (int t = threadIdx.x; t < H; t += blockDim.x)
+      hap_s[t] = lut[haps[static_cast<size_t>(h) * hpad + t]];
+    __syncthreads();
+    for (int r = warp; r < kTile; r += kWarps) {
+      const int row = tile_tab[b] * kTile + r;
+      const int R = read_lens[row];
+      if (R == 0) continue;                       // pad row of a short tile
+      // a scratch strip covers rows 0..R of this read only, so a short
+      // read in a batch padded for a long one does not sweep the padding
+      const int K = (R + 32) / 32;
+      Strip<KC> st(slab, K, lane);
+      const size_t o = static_cast<size_t>(row) * rpad;
+      const float v = sweep<KC>(st, K, lane, R, H, hap_s, lut, quals + o,
+                                ins_q + o, del_q + o, gcp_q + o, read_u8 + o);
+      if (lane == 0) out[static_cast<size_t>(b) * kTile + r] = v;
+    }
+  }
+}
+
+int long_grid(int nblocks) {
+  return nblocks < kLongCtas ? nblocks : kLongCtas;
+}
+
+template <int KC>
+int launch(int grid, size_t smem, cudaStream_t stream,
+           const void* tile_tab, const void* hap_tab, const void* hap_lens,
+           const void* quals, const void* ins_q, const void* del_q,
+           const void* gcp_q, const void* read_u8, const void* read_lens,
+           const void* haps, const void* base_bits, void* scratch,
+           int nblocks, int rpad, int hpad, void* out) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        grouped_kernel<KC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  grouped_kernel<KC><<<grid, kThreads, smem, stream>>>(
+      static_cast<const int*>(tile_tab), static_cast<const int*>(hap_tab),
+      static_cast<const int*>(hap_lens), static_cast<const uint8_t*>(quals),
+      static_cast<const uint8_t*>(ins_q), static_cast<const uint8_t*>(del_q),
+      static_cast<const uint8_t*>(gcp_q),
+      static_cast<const uint8_t*>(read_u8),
+      static_cast<const int*>(read_lens), static_cast<const uint8_t*>(haps),
+      static_cast<const int*>(base_bits), static_cast<float*>(scratch),
+      nblocks, rpad, hpad, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Floats of global scratch pairhmm_grouped_launch needs (0 when the read
+// strips fit in registers).
+long long pairhmm_scratch_floats(int nblocks, int rpad) {
+  if (rpad / 32 <= kMaxRegK) return 0;
+  return static_cast<long long>(long_grid(nblocks)) * kWarps * rpad
+         * kNumFields;
+}
+
+// Launch the grouped forward on `stream`; returns cudaGetLastError() (0 on
+// success).  Pointers are device pointers: tile_tab/hap_tab int32
+// [nblocks], hap_lens int32 [n_haps], the five u8 planes [rows, rpad],
+// read_lens int32 [rows], haps u8 [n_haps, hpad], base_bits int32 [256],
+// scratch f32 [pairhmm_scratch_floats], out f32 [nblocks * 32].
+int pairhmm_grouped_launch(const void* tile_tab, const void* hap_tab,
+                           const void* hap_lens, const void* quals,
+                           const void* ins_q, const void* del_q,
+                           const void* gcp_q, const void* read_u8,
+                           const void* read_lens, const void* haps,
+                           const void* base_bits, void* scratch,
+                           int nblocks, int rpad, int hpad, void* out,
+                           void* stream) {
+  if (nblocks <= 0) return 0;
+  if (rpad <= 0 || rpad % 32 != 0 || hpad < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(hpad) * sizeof(int);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int K = rpad / 32;
+#define LORIKEET_ARGS tile_tab, hap_tab, hap_lens, quals, ins_q, del_q, \
+    gcp_q, read_u8, read_lens, haps, base_bits, scratch, nblocks, rpad, \
+    hpad, out
+  if (K <= 4) return launch<4>(nblocks, smem, s, LORIKEET_ARGS);
+  if (K <= 8) return launch<8>(nblocks, smem, s, LORIKEET_ARGS);
+  if (K <= kMaxRegK) return launch<kMaxRegK>(nblocks, smem, s, LORIKEET_ARGS);
+  return launch<0>(long_grid(nblocks), smem, s, LORIKEET_ARGS);
+#undef LORIKEET_ARGS
+}
+
+}  // extern "C"

@@ -1,0 +1,356 @@
+"""Grouped pair-HMM forward on a CUDA card: packer, torch twin, kernel.
+
+Counterpart of lorikeet_tpu/ops/pairhmm_pallas.py's grouped path
+(``pack_grouped_inputs`` + ``_kernel_grouped`` over ``_dp_sweep``).  A
+region's pairs are the cross product of its reads and haplotypes, so the
+packer ships each read and each haplotype once and a table of blocks drives
+the sweep: block b runs read tile ``tile_tab[b]`` (32 read rows) against
+haplotype row ``hap_tab[b]``.
+
+- :func:`pack_grouped_inputs` builds those tables and planes on the host,
+  sized to the work (no fixed dispatch shapes, no pad blocks).
+- :func:`pairhmm_sweep_torch` is the plain torch version of the sweep: the
+  TPU kernel's ``_dp_sweep`` in torch ops on [rows, Rpad] tensors.
+- :func:`pairhmm_grouped_cuda` launches the hand-written kernel
+  (``csrc/pairhmm.cu``) for tensors on a CUDA device, and takes the plain
+  version only for tensors on the CPU.  It never falls back: a failed build
+  or launch raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from lorikeet_tpu_torch.ops.pairhmm import TRISTATE_CORRECTION
+
+# One-hot base-bit encoding.  The N-aware base match ((r == h) | r == N |
+# h == N) collapses to one AND + compare when every base maps to a bit and N
+# maps to all bits.  IUPAC codes get distinct bits (the reference matches by
+# byte equality, not IUPAC intersection); lowercase folds to uppercase; every
+# other byte shares one "unknown" bit; byte 0 (padding) maps to no bits.
+_BASE_BITS = np.zeros(256, np.int32)
+for _i, _ch in enumerate(b"ACGT"):
+    _BASE_BITS[_ch] = 1 << _i
+for _i, _ch in enumerate(b"RYSWKMBDHVU="):
+    _BASE_BITS[_ch] = 1 << (4 + _i)
+_BASE_BITS[_BASE_BITS == 0] = 1 << 20
+for _ch in range(ord("a"), ord("z") + 1):
+    _BASE_BITS[_ch] = _BASE_BITS[_ch - 32]
+_BASE_BITS[ord("N")] = _BASE_BITS[ord("n")] = (1 << 21) - 1
+_BASE_BITS[0] = 0
+
+#: diagonals per power-of-two renormalisation (8 steps decay at most
+#: ~1e-44, above the f32 denormal floor)
+GROUP = 8
+#: read rows per table block (the kernel's tile height)
+GROUP_BLOCK_B = 32
+
+#: kernel launches made by pairhmm_grouped_cuda in this process
+LAUNCHES = 0
+
+_LN10_OVER_M10 = np.float32(-np.log(10.0) / 10.0)
+_THIRD = np.float32(1.0 / TRISTATE_CORRECTION)
+_LOG10_2 = np.float32(np.log10(2.0))
+_FLT_MIN = float(np.finfo(np.float32).tiny)
+#: eps of every phred byte, expf(q * f32(-ln10/10)) correctly rounded: the
+#: plain version reads it instead of calling torch.exp, so its eps is the
+#: same on every device and does not depend on which exp implementation a
+#: torch build picks
+_EPS_OF_PHRED = np.exp((np.arange(256, dtype=np.float32) * _LN10_OVER_M10)
+                       .astype(np.float64)).astype(np.float32)
+
+_PLANES = ("quals", "ins_q", "del_q", "gcp_q", "read_u8")
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _fill_rows(dst: np.ndarray, rows: np.ndarray, col0: int, arrays: list):
+    """dst[rows[k], col0:col0+len(arrays[k])] = arrays[k] in one scatter."""
+    if not arrays:
+        return
+    lens = np.fromiter((len(a) for a in arrays), np.int64, len(arrays))
+    starts = rows.astype(np.int64) * dst.shape[1] + col0
+    total = int(lens.sum())
+    # flat target of element e of array k: starts[k] + (e - first_e[k])
+    first = np.cumsum(lens) - lens
+    idx = np.repeat(starts - first, lens) + np.arange(total)
+    dst.ravel()[idx] = np.concatenate(arrays)
+
+
+def pack_grouped_inputs(pairs):
+    """Dedup a flat (hap, read, q, iq, dq, gcp) pair list into grouped
+    tables.  Reads sharing an identical haplotype set (one region's reads)
+    tile together; each read and haplotype is packed once.
+
+    Returns ``(arrays, out_pos)``: ``arrays`` holds int32 ``tile_tab`` /
+    ``hap_tab`` [nblocks], int32 ``hap_lens`` [n_haps], u8 ``haps``
+    [n_haps, Hmax], the five u8 read planes ``quals``, ``ins_q``, ``del_q``,
+    ``gcp_q``, ``read_u8`` [rows, Rpad] (lane 0 is the boundary row, lanes
+    1..R the read), and int32 ``read_lens`` [rows] (0 on the pad rows that
+    fill a group's last tile).  Block b's result for tile row r lands at
+    flat position b * 32 + r; ``out_pos[k]`` is that position for pairs[k]
+    (duplicate pairs share one cell)."""
+    tile = GROUP_BLOCK_B
+    hap_row_of = {}
+    hap_list = []
+    reads = {}            # id(read bases) -> dict
+    read_order = []
+    for k, (hap, read, q, iq, dq, gcp) in enumerate(pairs):
+        hid = id(hap)
+        if hid not in hap_row_of:
+            hap_row_of[hid] = len(hap_list)
+            hap_list.append(hap)
+        rid = id(read)
+        ent = reads.get(rid)
+        if ent is None:
+            ent = {"data": (q, iq, dq, gcp, read), "haps": [], "ks": []}
+            reads[rid] = ent
+            read_order.append(rid)
+        ent["haps"].append(hap_row_of[hid])
+        ent["ks"].append(k)
+
+    # group reads by identical (ordered, deduped) hap set: the region
+    # structure.  A read shared by overlapping regions tiles alone against
+    # the union of their haps — correct for every pair, merely less dense.
+    groups = {}
+    for rid in read_order:
+        key = tuple(dict.fromkeys(reads[rid]["haps"]))
+        groups.setdefault(key, []).append(rid)
+
+    row_data = []         # (row index, read data) of the real rows
+    n_rows = 0
+    tile_tab, hap_tab = [], []
+    out_pos = np.empty(len(pairs), np.int64)
+    for key, rids in groups.items():
+        n_tiles = -(-len(rids) // tile)
+        tile0 = n_rows // tile
+        blk0 = len(tile_tab)
+        for i, rid in enumerate(rids):
+            row_data.append((n_rows + i, reads[rid]["data"]))
+        n_rows += n_tiles * tile
+        # blocks in (tile-major, hap-minor) order
+        for t in range(n_tiles):
+            tile_tab.extend([tile0 + t] * len(key))
+            hap_tab.extend(key)
+        jmap = {h: j for j, h in enumerate(key)}
+        ks, js, rr = [], [], []
+        for i, rid in enumerate(rids):
+            ent = reads[rid]
+            ks.extend(ent["ks"])
+            js.extend(jmap[h] for h in ent["haps"])
+            rr.extend([i] * len(ent["ks"]))
+        rr = np.asarray(rr, np.int64)
+        blk = blk0 + (rr // tile) * len(key) + np.asarray(js, np.int64)
+        out_pos[np.asarray(ks, np.int64)] = blk * tile + rr % tile
+
+    rmax = max(len(d[4]) for _, d in row_data)
+    rpad = _round_up(rmax + 1, 128)
+    rows_idx = np.fromiter((r for r, _ in row_data), np.int64, len(row_data))
+    arrays = {"tile_tab": np.asarray(tile_tab, np.int32),
+              "hap_tab": np.asarray(hap_tab, np.int32)}
+    for j, name in enumerate(_PLANES):
+        plane = np.zeros((n_rows, rpad), np.uint8)
+        _fill_rows(plane, rows_idx, 1, [d[j] for _, d in row_data])
+        arrays[name] = plane
+    read_lens = np.zeros(n_rows, np.int32)
+    read_lens[rows_idx] = [len(d[4]) for _, d in row_data]
+    arrays["read_lens"] = read_lens
+    hap_lens = np.fromiter((len(h) for h in hap_list), np.int32,
+                           len(hap_list))
+    haps = np.zeros((len(hap_list), int(hap_lens.max())), np.uint8)
+    _fill_rows(haps, np.arange(len(hap_list)), 0, hap_list)
+    arrays["hap_lens"] = hap_lens
+    arrays["haps"] = haps
+    return arrays, out_pos
+
+
+def to_tensors(arrays: dict, device) -> dict:
+    """The packed arrays as tensors on ``device``, plus the base-bit
+    table the kernel and the plain version both read."""
+    t = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+    t["base_bits"] = torch.from_numpy(_BASE_BITS).to(device)
+    return t
+
+
+def pairhmm_sweep_torch(t: dict) -> torch.Tensor:
+    """Plain torch version of the grouped sweep: f32 [nblocks * 32], one
+    value per (block, tile row), on the device of the inputs.
+
+    This is the TPU kernel's ``_dp_sweep`` written with torch ops on
+    [rows, Rpad] tensors (rows = every block's 32 tile rows): state shifts
+    are ``torch.roll`` along the read axis, the renormalisation exponent is
+    read through ``.view(torch.int32)``.  Pad rows (read length 0) yield a
+    value that no pair reads."""
+    f32 = torch.float32
+    quals = t["quals"]
+    dev = quals.device
+    rpad = quals.shape[1]
+    tile = GROUP_BLOCK_B
+    rows = (t["tile_tab"].long()[:, None] * tile
+            + torch.arange(tile, device=dev)).reshape(-1)
+    hrow = t["hap_tab"].long().repeat_interleave(tile)
+    R = t["read_lens"].long()[rows][:, None]                  # [TB, 1]
+    H = t["hap_lens"].long()[hrow][:, None]
+    lut = t["base_bits"]
+    hap_bits = lut[t["haps"].long()[hrow]]                    # [TB, Hmax]
+    hmax = hap_bits.shape[1]
+    lane = torch.arange(rpad, device=dev)[None, :]
+    ok = (lane >= 1) & (lane <= R)
+    eps_of_phred = torch.from_numpy(_EPS_OF_PHRED).to(dev)
+
+    def eps_of(name):
+        return torch.where(ok, eps_of_phred[t[name][rows].long()], 0.0)
+
+    eps = eps_of("quals")
+    tmi = eps_of("ins_q")
+    tmd = eps_of("del_q")
+    eg = eps_of("gcp_q")
+    tmm = 1.0 - torch.clamp(tmi + tmd, max=1.0)
+    tim = 1.0 - eg
+    tii = eg
+    tdd = eg
+    pm = 1.0 - eps
+    px = eps * torch.tensor(_THIRD, device=dev)
+    rp = torch.where(ok, lut[t["read_u8"][rows].long()], 0)
+    boundary = lane == 0
+    is_end_row = lane == R
+    b0 = 1.0 / H.clamp(min=1).to(f32)                         # [TB, 1]
+
+    tb = rows.numel()
+    zeros = torch.zeros(tb, rpad, dtype=f32, device=dev)
+    no_base = torch.zeros(tb, 1, dtype=torch.int32, device=dev)
+    m1 = i1 = sm = si = sd = acc = zeros
+    d1 = torch.where(boundary, b0, 0.0)
+    hapd = torch.zeros(tb, rpad, dtype=torch.int32, device=dev)
+    bval = b0
+    ls = torch.zeros(tb, 1, dtype=torch.int32, device=dev)
+    roll = lambda x: torch.roll(x, 1, 1)     # noqa: E731
+    ndiag = int(((R + H + GROUP - 1) // GROUP * GROUP).max())
+    for d in range(1, ndiag + 1):
+        # row i on diagonal d meets haplotype base d - i - 1: a shift
+        # register fed with hap[d - 1] at the boundary lane
+        hapd = roll(hapd)
+        hapd[:, :1] = hap_bits[:, d - 1:d] if d - 1 < hmax else no_base
+        prior = torch.where((rp & hapd) != 0, pm, px)
+        m_new = prior * (sm * tmm + (si + sd) * tim)
+        new_sm = roll(m1)
+        new_si = roll(i1)
+        i_new = new_sm * tmi + new_si * tii
+        d_new = torch.where(boundary, bval, m1 * tmd + d1 * tdd)
+        j0 = d - R - 1                                         # column - 1
+        valid = (j0 >= 0) & (j0 < H) & is_end_row
+        acc = acc + torch.where(valid, m_new + i_new, 0.0)
+        sm, si, sd = new_sm, new_si, roll(d1)
+        m1, i1, d1 = m_new, i_new, d_new
+        if d % GROUP == 0:
+            interior = torch.maximum(
+                m1, torch.maximum(i1, torch.where(boundary, 0.0, d1)))
+            peak = torch.maximum(interior.amax(1, keepdim=True),
+                                 acc.amax(1, keepdim=True))
+            peak = torch.where(peak > 0, peak, 1.0)
+            e = (peak.view(torch.int32) >> 23) & 0xFF
+            inv = ((254 - e) << 23).view(f32)                  # 2^(127-e)
+            m1, i1, d1 = m1 * inv, i1 * inv, d1 * inv
+            sm, si, sd = sm * inv, si * inv, sd * inv
+            bval = bval * inv
+            acc = acc * inv
+            ls = ls + (e - 127)
+    total = torch.clamp(acc.sum(1), min=_FLT_MIN)
+    # log10 in f64 rounded to f32: a correctly rounded log10f
+    return (torch.log10(total.double()).to(f32)
+            + ls[:, 0].to(f32) * torch.tensor(_LOG10_2, device=dev))
+
+
+_KERNEL = None
+
+
+def _kernel() -> ctypes.CDLL:
+    global _KERNEL
+    if _KERNEL is None:
+        from lorikeet_tpu_torch.ops._build import load
+        lib = load("pairhmm")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.pairhmm_grouped_launch.argtypes = [vp] * 12 + [ci] * 3 + [vp, vp]
+        lib.pairhmm_grouped_launch.restype = ci
+        lib.pairhmm_scratch_floats.argtypes = [ci, ci]
+        lib.pairhmm_scratch_floats.restype = ctypes.c_longlong
+        _KERNEL = lib
+    return _KERNEL
+
+
+_DTYPES = {"tile_tab": torch.int32, "hap_tab": torch.int32,
+           "hap_lens": torch.int32, "read_lens": torch.int32,
+           "haps": torch.uint8, "base_bits": torch.int32,
+           **{p: torch.uint8 for p in _PLANES}}
+
+
+def _check_inputs(t: dict) -> None:
+    dev = t["quals"].device
+    for name, dtype in _DTYPES.items():
+        x = t[name]
+        if x.device != dev or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"pairhmm input {name}: want contiguous {dtype} "
+                             f"on {dev}, got {x.dtype} on {x.device}")
+    rows, rpad = t["quals"].shape
+    if rpad % 128 or rows % GROUP_BLOCK_B:
+        raise ValueError(f"pairhmm planes {tuple(t['quals'].shape)}: rows "
+                         f"must be a multiple of {GROUP_BLOCK_B}, Rpad of 128")
+    for p in _PLANES:
+        if t[p].shape != (rows, rpad):
+            raise ValueError(f"pairhmm plane {p} shape {tuple(t[p].shape)}")
+    if t["read_lens"].shape != (rows,) or t["base_bits"].shape != (256,) \
+            or t["tile_tab"].shape != t["hap_tab"].shape \
+            or t["haps"].shape[0] != t["hap_lens"].shape[0]:
+        raise ValueError("pairhmm tables and planes disagree in shape")
+
+
+def pairhmm_grouped_cuda(t: dict) -> torch.Tensor:
+    """Grouped forward, f32 [nblocks * 32], on the device of ``t``'s
+    tensors: the CUDA kernel for a CUDA device, the plain version
+    (:func:`pairhmm_sweep_torch`) for the CPU."""
+    global LAUNCHES
+    dev = t["quals"].device
+    if dev.type == "cpu":
+        return pairhmm_sweep_torch(t)
+    if dev.type != "cuda":
+        raise ValueError(f"pairhmm_grouped_cuda: unsupported device {dev}")
+    _check_inputs(t)
+    lib = _kernel()
+    nblocks = t["tile_tab"].numel()
+    rpad = t["quals"].shape[1]
+    hpad = t["haps"].shape[1]
+    out = torch.empty(nblocks * GROUP_BLOCK_B, dtype=torch.float32,
+                      device=dev)
+    scratch = torch.empty(max(1, lib.pairhmm_scratch_floats(nblocks, rpad)),
+                          dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.pairhmm_grouped_launch(
+            *(t[k].data_ptr() for k in (
+                "tile_tab", "hap_tab", "hap_lens", *_PLANES, "read_lens",
+                "haps", "base_bits")),
+            scratch.data_ptr(), nblocks, rpad, hpad, out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"pairhmm kernel launch failed: CUDA error {rc} "
+                           f"(nblocks={nblocks}, Rpad={rpad}, Hmax={hpad})")
+    LAUNCHES += 1
+    return out
+
+
+def pairhmm_forward_grouped(pairs, device) -> np.ndarray:
+    """Forward log10 likelihoods (f32 values as float64) [len(pairs)] for a
+    flat (hap, read, q, iq, dq, gcp) pair list on ``device``."""
+    if not pairs:
+        return np.zeros(0)
+    device = torch.device(device)
+    if device.type == "cuda":
+        from lorikeet_tpu_torch.device import require_cuda
+        require_cuda()
+    arrays, out_pos = pack_grouped_inputs(pairs)
+    flat = pairhmm_grouped_cuda(to_tensors(arrays, device))
+    pos = torch.from_numpy(out_pos).to(device)
+    return flat[pos].cpu().numpy().astype(np.float64)

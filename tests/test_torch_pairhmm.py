@@ -1,0 +1,260 @@
+"""The port's pair-HMM against the JAX package, on the CPU.
+
+``pairhmm_sweep_torch`` (the plain torch version of the CUDA kernel, which
+``pairhmm_grouped_cuda`` takes for CPU tensors) runs through the port's
+packer on the cases of tests/test_pairhmm_pallas.py and is held:
+- against the exact f64 ``pairhmm_forward_np`` at 2e-3 (the bound the TPU
+  kernel holds), after the f64 escalation of flushed rows;
+- against the TPU kernel in interpret mode at 1e-4 on rows above -28: both
+  are the same f32 sweep, so only f32 exp/log10 from two libraries differ.
+The ported numpy parts must equal the JAX package's exactly.
+"""
+import numpy as np
+import pytest
+import torch
+
+import lorikeet_tpu.ops.pairhmm as jph
+from lorikeet_tpu.ops.pairhmm_pallas import (
+    pairhmm_forward_grouped as jax_grouped,
+)
+import lorikeet_tpu_torch.ops.pairhmm as tph
+from lorikeet_tpu_torch.calling import likelihoods as tlk
+from lorikeet_tpu_torch.ops import pairhmm_cuda as pc
+
+BASES = np.frombuffer(b"ACGT", np.uint8)
+DEVICE_TOL = 1e-4     # torch twin vs interpret-mode TPU kernel (f32 both)
+EXACT_TOL = 2e-3      # f32 kernel vs exact f64 (tests/test_pairhmm_pallas.py)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain version's tensors here are small: several test workers
+    each running torch's default thread pool only contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _pair(rng, hap, read, q_lo=10):
+    R = len(read)
+    return (hap, read, rng.integers(q_lo, 40, R).astype(np.uint8),
+            rng.integers(30, 46, R).astype(np.uint8),
+            rng.integers(30, 46, R).astype(np.uint8),
+            np.full(R, 10, np.uint8))
+
+
+def _ambiguous_pairs():
+    """N in read and hap, IUPAC bytes matching by byte equality, an
+    unknown byte ('X') on both sides (test_pairhmm_pallas.py:102, :153)."""
+    rng = np.random.default_rng(23)
+    hap = BASES[rng.integers(0, 4, 40)]
+    read = hap[3:23].copy()
+    hap[10] = ord("N")
+    read[4] = ord("N")
+    hap2 = BASES[rng.integers(0, 4, 36)]
+    read2 = hap2[2:20].copy()
+    hap2[8] = ord("R")
+    read2[6] = ord("A")
+    hap3 = BASES[rng.integers(0, 4, 36)]
+    read3 = hap3[1:19].copy()
+    hap3[5] = ord("R")
+    read3[4] = ord("R")
+    hap3[12] = ord("N")
+    read3[11] = ord("R")
+    hap4 = BASES[rng.integers(0, 4, 36)]
+    hap4[9] = ord("X")
+    read4 = hap4[3:27].copy()
+    read5 = hap4[2:30].copy()
+    read5[[3, 10]] = ord("N")
+    read5[7] = ord("r")                  # lowercase folds to 'R'
+    return [_pair(rng, h, r) for h, r in
+            [(hap, read), (hap2, read2), (hap3, read3), (hap4, read4),
+             (hap4, read5)]]
+
+
+def _multilane_pairs():
+    """R > 127: a 256-wide read axis (test_pairhmm_pallas.py:57)."""
+    rng = np.random.default_rng(11)
+    pairs = []
+    for H, R in [(300, 150), (200, 151), (280, 140)]:
+        hap = BASES[rng.integers(0, 4, H)]
+        read = hap[7:7 + R].copy()
+        read[rng.integers(0, R)] = BASES[rng.integers(0, 4)]
+        pairs.append(_pair(rng, hap, read))
+    return pairs
+
+
+def _long_duplicate_pairs():
+    """A 500 bp read, three identical tuples (test_pairhmm_pallas.py:211)
+    plus a shallower 500 bp pair that stays above the escalation bound."""
+    rng = np.random.default_rng(0)
+    hap = BASES[rng.integers(0, 4, 700)]
+    read = hap[100:600].copy()
+    for _ in range(25):
+        read[int(rng.integers(0, 500))] = BASES[int(rng.integers(0, 4))]
+    q = np.full(500, 30, np.uint8)
+    o = np.full(500, 45, np.uint8)
+    g = np.full(500, 10, np.uint8)
+    clean = hap[150:650].copy()
+    return [(hap, read, q, o, o, g)] * 3 + [(hap, clean, q, o, o, g)]
+
+
+def _region_pairs(seed=5):
+    """Region-shaped cross products (test_pairhmm_pallas.py:241)."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for _ in range(3):
+        H = int(rng.integers(150, 400))
+        bh = BASES[rng.integers(0, 4, H)]
+        haps = [bh] + [bh.copy() for _ in range(2)]
+        for h in haps[1:]:
+            h[int(rng.integers(0, H))] = BASES[int(rng.integers(0, 4))]
+        for _ in range(int(rng.integers(5, 40))):
+            R = int(rng.integers(40, 130))
+            lo = int(rng.integers(0, H - R))
+            read = bh[lo:lo + R].copy()
+            q = np.full(R, 30, np.uint8)
+            o = np.full(R, 45, np.uint8)
+            g = np.full(R, 10, np.uint8)
+            for h in haps:
+                pairs.append((h, read, q, o, o, g))
+    return pairs
+
+
+CASES = {"ambiguous": _ambiguous_pairs, "multilane": _multilane_pairs,
+         "long_duplicates": _long_duplicate_pairs, "region": _region_pairs}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_twin_matches_exact_f64(case):
+    pairs = CASES[case]()
+    raw = pc.pairhmm_forward_grouped(pairs, "cpu")
+    want = np.array([tph.pairhmm_forward_np(*p) for p in pairs])
+    deep = want <= tph.F32_SUSPECT_LOG10
+    np.testing.assert_allclose(raw[~deep], want[~deep], atol=EXACT_TOL)
+    got = tph.pairhmm_forward_checked(raw, pairs)
+    np.testing.assert_allclose(got, want, atol=EXACT_TOL)
+
+
+@pytest.mark.parametrize("seed", [5, 9])
+def test_twin_matches_jax_interpret_kernel(seed):
+    pairs = _region_pairs(seed)
+    got = pc.pairhmm_forward_grouped(pairs, "cpu")
+    want = jax_grouped(pairs, interpret=True)
+    keep = want > tph.F32_SUSPECT_LOG10
+    assert keep.all()
+    np.testing.assert_allclose(got[keep], want[keep], rtol=0, atol=DEVICE_TOL)
+
+
+def test_duplicates_share_one_cell_and_long_read_escalates():
+    pairs = _long_duplicate_pairs()
+    arrays, out_pos = pc.pack_grouped_inputs(pairs)
+    assert out_pos[0] == out_pos[1] == out_pos[2] != out_pos[3]
+    got = pc.pairhmm_forward_grouped(pairs, "cpu")
+    assert np.all(np.isfinite(got)) and got[0] == got[1] == got[2]
+    # the deep pair lands in the escalation zone, like the TPU kernel's
+    assert got[0] < tph.F32_SUSPECT_LOG10 < got[3]
+
+
+def test_packer_tables():
+    """One read tile per group of <= 32 reads, blocks tile-major over the
+    group's haps, pad rows of length 0, each read and hap packed once."""
+    pairs = _region_pairs(7)
+    arrays, out_pos = pc.pack_grouped_inputs(pairs)
+    reads = {id(p[1]) for p in pairs}
+    haps = {id(p[0]) for p in pairs}
+    assert arrays["haps"].shape[0] == len(haps) == arrays["hap_lens"].size
+    assert int((arrays["read_lens"] > 0).sum()) == len(reads)
+    rows, rpad = arrays["quals"].shape
+    assert rows % pc.GROUP_BLOCK_B == 0 and rpad % 128 == 0
+    assert rpad > max(len(p[1]) for p in pairs)
+    nblocks = arrays["tile_tab"].size
+    # distinct (read, hap) pairs get distinct cells
+    assert len(set(out_pos.tolist())) == len({(id(p[1]), id(p[0]))
+                                              for p in pairs})
+    assert out_pos.max() < nblocks * pc.GROUP_BLOCK_B
+    for k, (hap, read, q, iq, dq, gcp) in enumerate(pairs):
+        b, r = divmod(int(out_pos[k]), pc.GROUP_BLOCK_B)
+        row = arrays["tile_tab"][b] * pc.GROUP_BLOCK_B + r
+        h = arrays["hap_tab"][b]
+        L = len(read)
+        assert arrays["read_lens"][row] == L
+        np.testing.assert_array_equal(arrays["read_u8"][row, 1:L + 1], read)
+        np.testing.assert_array_equal(arrays["quals"][row, 1:L + 1], q)
+        np.testing.assert_array_equal(arrays["gcp_q"][row, 1:L + 1], gcp)
+        assert arrays["read_u8"][row, 0] == 0
+        assert arrays["hap_lens"][h] == len(hap)
+        np.testing.assert_array_equal(arrays["haps"][h, :len(hap)], hap)
+
+
+def test_base_bits_match_tpu_kernel_encoding():
+    """The port's table is the TPU kernel's in-kernel encoding (byte 0 has
+    no bits; all lowercase letters fold)."""
+    import jax.numpy as jnp
+    from lorikeet_tpu.ops.pairhmm_pallas import _base_bits_jnp
+    codes = np.arange(256, dtype=np.uint8)
+    want = np.asarray(_base_bits_jnp(jnp.asarray(codes)))
+    np.testing.assert_array_equal(pc._BASE_BITS, want)
+
+
+def test_numpy_parts_equal_jax_package():
+    rng = np.random.default_rng(3)
+    pairs = _ambiguous_pairs() + _multilane_pairs()
+    for p in pairs:
+        assert tph.pairhmm_forward_np(*p) == jph.pairhmm_forward_np(*p)
+        np.testing.assert_array_equal(
+            np.stack(tph._transition_probs(*p[3:6])),
+            np.stack(jph._transition_probs(*p[3:6])))
+    for kw in ({}, {"r_pad_to": 32, "h_pad_to": 64},
+               {"r_pad_to": lambda r: r + 5}):
+        a = tph.pack_pairhmm_batch(pairs, **kw)
+        b = jph.pack_pairhmm_batch(pairs, **kw)
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+    raw = np.array([jph.pairhmm_forward_np(*p) for p in pairs])
+    raw += rng.normal(0, 1e-4, raw.size)
+    raw[[0, 3]] = [-40.0, 0.5]
+    raw[5] = np.nan
+    np.testing.assert_array_equal(tph.pairhmm_forward_checked(raw, pairs),
+                                  jph.pairhmm_forward_checked(raw, pairs))
+    assert tph.TRISTATE_CORRECTION == jph.TRISTATE_CORRECTION
+    assert tph.F32_SUSPECT_LOG10 == jph.F32_SUSPECT_LOG10
+
+
+def test_escalation_counter_counts_suspect_rows():
+    pairs = _ambiguous_pairs()
+    raw = np.array([tph.pairhmm_forward_np(*p) for p in pairs])
+    raw[1] = np.inf
+    before = dict(tph.ESCALATIONS)
+    tph.pairhmm_forward_checked(raw, pairs)
+    assert tph.ESCALATIONS["checked"] - before["checked"] == len(pairs)
+    assert tph.ESCALATIONS["escalated"] - before["escalated"] == 1
+
+
+def test_wrapper_takes_plain_version_only_on_cpu(monkeypatch):
+    pairs = _region_pairs(5)[:40]
+    arrays, out_pos = pc.pack_grouped_inputs(pairs)
+    t = pc.to_tensors(arrays, "cpu")
+    launches = pc.LAUNCHES
+    got = pc.pairhmm_grouped_cuda(t)
+    assert pc.LAUNCHES == launches            # no kernel launched on CPU
+    torch.testing.assert_close(got, pc.pairhmm_sweep_torch(t), rtol=0,
+                               atol=0)
+    # a CUDA request without a card raises; it never falls back
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pc.pairhmm_forward_grouped(pairs, "cuda")
+
+
+def test_compute_pair_likelihoods_routes_every_batch_to_device(monkeypatch):
+    monkeypatch.setattr(tlk, "PAIRHMM_DEVICE", "cpu")
+    pairs = _region_pairs(9)
+    before = dict(tlk.DISPATCH_COUNTS)
+    got = tlk.compute_pair_likelihoods(pairs, use_cuda=True)
+    assert tlk.DISPATCH_COUNTS["device"] == before["device"] + 1
+    assert tlk.DISPATCH_COUNTS["host"] == before["host"]
+    want = tlk.compute_pair_likelihoods(pairs, use_cuda=False)
+    assert tlk.DISPATCH_COUNTS["host"] == before["host"] + 1
+    np.testing.assert_allclose(got, want, atol=EXACT_TOL)
