@@ -7,26 +7,41 @@ Phases, one JSON line each; any failure exits non-zero without the final
 ``ok`` line:
 
 1. probe   torch/CUDA versions, the card, its capability (9, 0), nvcc.
-2. build   compile csrc/pairhmm.cu for sm_90a from the checkout.
+2. build   compile csrc/pairhmm.cu and csrc/sw.cu for sm_90a from the
+           checkout, in parallel, and print their ptxas lines.
 3. kernel  region-shaped pairs (64 regions x 6 haplotypes of 300-650 bp x
            40 reads of 100 bp, with N, IUPAC and unknown bytes and duplicate
            tuples) and a long-read batch (500 bp and 3 kb reads): the kernel
            against its plain torch version on the card (|d log10| <= 1e-4 on
            rows above -28), and after the f64 escalation against the native
            f64 kernel (<= 2e-3); median times over >= 5 runs (CUDA events).
-4. call    `lorikeet_tpu_torch.cli call -t 1` on a simulated 1 Mbp x 2
-           samples x 30x genome, on the card and with --force-cpu (the exact
-           f64 host kernel), in turns (card, f64, f64, card) after a short
-           warm-up run: same sites, alleles and genotypes, QUAL within 0.1,
-           recall >= 0.99, every pair-HMM batch of a card leg on the card.
-5. main_path  the largest pair-HMM batch of the first card leg, replayed:
+4. sw_kernel  the Smith-Waterman kernel against its plain torch version and
+           the native aligner, exactly, on three batches: `region` (64
+           haplotypes of 300-650 bp x 40 reads of 100 bp with 1-3
+           mismatches and a 1-6 bp indel), `strategies` (every overhang
+           strategy x parameter set) and `long` (1-3 kb reads against
+           haplotypes near the cap, and refs above it on the scalar route).
+5. call    `lorikeet_tpu_torch.cli call -t 1` on a simulated 1 Mbp x 2
+           samples x 30x genome, in turns after a short warm-up run: a card
+           leg with the SW on the card (--pallas-sw), the exact f64 host
+           pair-HMM (--force-cpu), the f64 pair-HMM with the SW on the card
+           (--force-cpu --pallas-sw), then the default card leg (native
+           host SW).  Same sites, alleles and genotypes, QUAL within 0.1,
+           recall >= 0.99, every pair-HMM batch of a card leg on the card,
+           realignment pairs of a --pallas-sw leg on the SW kernel, and the
+           VCFs byte-identical with and without --pallas-sw (card legs; f64
+           legs).
+6. main_path  the largest pair-HMM batch of the first card leg, replayed:
            kernel against the plain version, and both timed.
-6. trace   one more card leg under torch.profiler, for the share of the
-           run the card sits idle.
+7. sw_main_path  the largest realignment SW batch of the first card leg,
+           replayed: kernel, plain version and native aligner, all timed.
+8. trace   the default card leg and the --pallas-sw one again, each under
+           torch.profiler, for the share of the run the card sits idle.
 
-The line before the last repeats the card's name and power limit; the last
-is the ``ok`` line.  Exits 1 when there is no CUDA device.  Needs one card,
-no network.
+The line before the last lists both kernels (launches in the card leg
+that runs each, largest error against the plain version, main-path
+times), then the card's name and power limit; the last is the ``ok``
+line.  Exits 1 when there is no CUDA device.  Needs one card, no network.
 """
 import contextlib
 import io
@@ -42,8 +57,16 @@ QUAL_TOL = 0.1           # GPU leg vs f64 leg (docs/benchmarks.md:292-298)
 MIN_RECALL = 0.99
 GENOME_KBP = 1000
 TIMED_RUNS = 7
+#: csrc/<name>.cu of every kernel of the main path
+KERNEL_SOURCES = ("pairhmm", "sw")
 #: the e2e legs in turns, so that drift on the host hits both alike
-LEG_ORDER = ("gpu", "f64", "f64", "gpu")
+LEG_ORDER = ("gpu_sw", "f64", "f64_sw", "gpu")
+#: `call` flags of each leg: "gpu" is the default path on a card (native
+#: host SW), the "_sw" legs run the realignment SW on the card
+LEG_FLAGS = {"gpu": [], "gpu_sw": ["--pallas-sw"], "f64": ["--force-cpu"],
+             "f64_sw": ["--force-cpu", "--pallas-sw"]}
+#: legs whose VCFs must be byte-identical: only the SW's device differs
+SAME_VCF = (("gpu", "gpu_sw"), ("f64", "f64_sw"))
 
 
 def emit(phase: str, **fields):
@@ -174,6 +197,166 @@ def kernel_phase(name, pairs, dev, timed: bool) -> dict:
     return out
 
 
+def sw_read(rng, hap, read_len):
+    """A read of ``hap`` with 1-3 mismatches and one 1-6 bp indel: never
+    an exact substring of a random haplotype, so no shortcut takes it."""
+    import numpy as np
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    read_len = min(read_len, len(hap))
+    lo = int(rng.integers(0, len(hap) - read_len + 1))
+    read = hap[lo:lo + read_len].copy()
+    pos = rng.choice(read_len, min(read_len, int(rng.integers(1, 4))),
+                     replace=False)
+    idx = np.searchsorted(bases, read[pos])
+    read[pos] = bases[(idx + rng.integers(1, 4, pos.size)) % 4]
+    n, k = int(rng.integers(1, 7)), int(rng.integers(0, read_len + 1))
+    if rng.random() < 0.5 or read_len <= n:
+        read = np.concatenate([read[:k], bases[rng.integers(0, 4, n)],
+                               read[k:]])
+    else:
+        read = np.delete(read, np.arange(k, min(k + n, read_len)))
+    out = read.tobytes()
+    if hap.tobytes().rfind(out) >= 0:      # a 1-3 base read may still occur
+        out += b"N"
+    return out
+
+
+def sw_region_pairs(rng, n_regions=64, n_reads=40, read_len=100):
+    """Realignment-shaped pairs: per region one haplotype of 300-650 bp
+    and 40 reads of 100 bp."""
+    import numpy as np
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    pairs = []
+    for _ in range(n_regions):
+        hap = bases[rng.integers(0, 4, int(rng.integers(300, 651)))]
+        pairs.extend((hap.tobytes(), sw_read(rng, hap, read_len))
+                     for _ in range(n_reads))
+    return pairs
+
+
+def sw_strategy_batches(rng, n=64):
+    """(strategy, parameters, pairs) for every overhang strategy and
+    parameter set: haplotypes of 1-400 bp, reads of 1-150 bp, some longer
+    than their haplotype."""
+    import numpy as np
+
+    from lorikeet_tpu.ops import smith_waterman as swm
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    params = (swm.ORIGINAL_DEFAULT, swm.STANDARD_NGS, swm.NEW_SW_PARAMETERS,
+              swm.ALIGNMENT_TO_BEST_HAPLOTYPE_SW_PARAMETERS)
+    out = []
+    for strategy in range(4):
+        for p in params:
+            pairs = []
+            for _ in range(n):
+                hap = bases[rng.integers(0, 4, int(rng.integers(1, 401)))]
+                if rng.random() < 0.1:      # alt longer than ref
+                    pairs.append((hap.tobytes(), b"N" + bases[rng.integers(
+                        0, 4, len(hap) + 10)].tobytes()))
+                else:
+                    pairs.append((hap.tobytes(), sw_read(
+                        rng, hap, int(rng.integers(1, 151)))))
+            out.append((strategy, p, pairs))
+    return out
+
+
+def sw_long_pairs(rng):
+    """1-3 kb reads against haplotypes near the kernel's cap, then two refs
+    above the cap (the scalar route)."""
+    import numpy as np
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    pairs = []
+    for hap_len, read_len in ((8191, 1000), (8000, 2000), (7900, 3000),
+                              (8192, 500), (9000, 1500)):
+        hap = bases[rng.integers(0, 4, hap_len)]
+        pairs.append((hap.tobytes(), sw_read(rng, hap, read_len)))
+    return pairs
+
+
+def sw_phase(name, pairs, params, strategy, dev, timed: bool,
+             phase: str = "sw_kernel") -> dict:
+    """One batch through align_batch_cuda (routes counted), and its
+    batched pairs through the kernel, the plain version and the native
+    aligner: all equal.  ``timed`` adds the medians of the kernel (CUDA
+    events), the plain version and the native aligner."""
+    import torch
+
+    from lorikeet_tpu.ops.smith_waterman import align
+    from lorikeet_tpu_torch.ops import sw_cuda as sc
+
+    counts = dict(sc.SW_COUNTS)
+    launches = sc.SW_LAUNCHES
+    t0 = time.perf_counter()
+    routed = sc.align_batch_cuda(pairs, params, strategy, dev)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    routes = {k: sc.SW_COUNTS[k] - counts[k] for k in counts}
+    t0 = time.perf_counter()
+    native = [align(r, a, params, strategy) for r, a in pairs]
+    native_ms = (time.perf_counter() - t0) * 1e3
+    check(routed == native, f"{name}: align_batch_cuda != native align")
+    batched = [(r, a) for r, a in pairs if len(r) <= sc.MAX_REF_LEN
+               and not (strategy in (0, 3) and r.rfind(a) >= 0)]
+    check(len(batched) == routes["device"],
+          f"{name}: routes {routes} for {len(batched)} batched pairs")
+    out = {"pairs": len(pairs), "strategy": strategy,
+           "params": list(params.__dict__.values()), "routes": routes,
+           "batch_ms": batch_ms, "native_ms": native_ms}
+    if not batched:
+        emit(phase, batch=name, **out)
+        return out
+    t = sc.to_tensors(sc.pack_pairs(batched), dev)
+    got = sc.sw_align(t, params, strategy)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        check(sc.SW_LAUNCHES > launches, f"{name}: kernel launch not counted")
+    t0 = time.perf_counter()
+    plain = sc.sw_align_torch(t, params, strategy)
+    plain_once_ms = (time.perf_counter() - t0) * 1e3
+    want = [align(r, a, params, strategy) for r, a in batched]
+    vs_plain = sum(g != p for g, p in zip(got, plain))
+    vs_native = sum(g != w for g, w in zip(got, want))
+    check(len(got) == len(plain) == len(want) and vs_plain == 0,
+          f"{name}: kernel != plain version on {vs_plain} pairs")
+    check(vs_native == 0, f"{name}: kernel != native align on {vs_native} "
+          "pairs")
+    cells = sum(len(r) * len(a) for r, a in batched)
+    out.update(batched=len(batched), cells=cells, rows_max=t["rows_max"],
+               mismatches=vs_plain + vs_native,
+               plain_once_ms=plain_once_ms)
+    if timed:
+        ms = cuda_median_ms(lambda: sc.sw_kernel_launch(t, params, strategy))
+        plain_ms = cuda_median_ms(
+            lambda: sc.sw_align_torch(t, params, strategy), runs=3)
+        native = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            [align(r, a, params, strategy) for r, a in batched]
+            native.append((time.perf_counter() - t0) * 1e3)
+        out.update(ms=ms, gcups=cells / (ms * 1e-3) / 1e9, plain_ms=plain_ms,
+                   native_batched_ms=sorted(native)[1])
+    emit(phase, batch=name, **out)
+    return out
+
+
+def sw_kernel_phase(rng, dev, timed=True) -> list:
+    from lorikeet_tpu.ops.smith_waterman import (
+        ALIGNMENT_TO_BEST_HAPLOTYPE_SW_PARAMETERS, OverhangStrategy,
+    )
+    best, soft = (ALIGNMENT_TO_BEST_HAPLOTYPE_SW_PARAMETERS,
+                  OverhangStrategy.SOFTCLIP)
+    region = sw_phase("region", sw_region_pairs(rng), best, soft, dev, timed)
+    check(region["routes"]["shortcut"] == 0, "region: a pair took the "
+          "shortcut")
+    out = [region]
+    for strategy, p, pairs in sw_strategy_batches(rng):
+        out.append(sw_phase(f"strategy{strategy}", pairs, p, strategy, dev,
+                            timed=False))
+    long_ = sw_phase("long", sw_long_pairs(rng), best, soft, dev, timed=False)
+    check(long_["routes"] == {"device": 3, "shortcut": 0, "scalar_long": 2},
+          f"long: routes {long_['routes']}")
+    return out + [long_]
+
+
 def read_sites(vcf):
     sites = []
     for line in open(vcf):
@@ -193,10 +376,24 @@ def call_leg(label, fasta, bams, outdir, extra):
     from lorikeet_tpu_torch.calling import likelihoods as lk
     from lorikeet_tpu_torch.ops import pairhmm as ph
     from lorikeet_tpu_torch.ops import pairhmm_cuda as pc
+    from lorikeet_tpu_torch.ops import sw_cuda as sc
 
     work = {"regions": 0, "batches": 0, "pairs": 0, "cells": 0}
     largest = {"cells": -1, "pairs": None}
+    sw_work = {"batches": 0, "device_batches": 0}
+    sw_largest = {"device": 0, "pairs": None}
     compute = engine.compute_works_likelihoods
+    align_batch = sc.align_batch_cuda
+
+    def sw_counted(pairs, *args, **kwargs):
+        before = sc.SW_COUNTS["device"]
+        out = align_batch(pairs, *args, **kwargs)
+        n = sc.SW_COUNTS["device"] - before
+        sw_work["batches"] += 1
+        sw_work["device_batches"] += n > 0
+        if n > sw_largest["device"]:
+            sw_largest.update(device=n, pairs=list(pairs))
+        return out
 
     def counted(eng, works):
         pairs = [p for w in works for p in w.pairs]
@@ -210,10 +407,13 @@ def call_leg(label, fasta, bams, outdir, extra):
         return compute(eng, works)
 
     engine.compute_works_likelihoods = counted
+    sc.align_batch_cuda = sw_counted
     progress.GLOBAL_STAGES = {}
     lk.DISPATCH_COUNTS.update(device=0, host=0)
     ph.ESCALATIONS.update(checked=0, escalated=0)
     pc.LAUNCHES = 0
+    sc.SW_LAUNCHES = 0
+    sc.SW_COUNTS.update(device=0, shortcut=0, scalar_long=0)
     buf = io.StringIO()
     t0 = time.perf_counter()
     try:
@@ -222,8 +422,10 @@ def call_leg(label, fasta, bams, outdir, extra):
                            "-o", outdir, *extra])
     finally:
         engine.compute_works_likelihoods = compute
+        sc.align_batch_cuda = align_batch
     wall = time.perf_counter() - t0
     launches = pc.LAUNCHES
+    sw_launches = sc.SW_LAUNCHES
     stages = dict(progress.GLOBAL_STAGES)
     progress.GLOBAL_STAGES = None
     check(rc == 0, f"{label}: cli exit code {rc}")
@@ -233,15 +435,18 @@ def call_leg(label, fasta, bams, outdir, extra):
     check(not errors, f"{label}: genome errors {errors}")
     (vcf,) = [o["vcf"] for o in genomes.values()]
     esc = dict(ph.ESCALATIONS)
-    leg = {"leg": label, "wall_s": wall, **work,
+    leg = {"leg": label, "flags": extra, "wall_s": wall, **work,
            "pairhmm_s": stages.get("pairhmm"),
            "stages_s": stages, "launches": launches,
            "dispatch": dict(lk.DISPATCH_COUNTS),
            "escalated": esc["escalated"], "checked": esc["checked"],
            "escalation_share": (esc["escalated"] / esc["checked"]
                                 if esc["checked"] else 0.0),
+           "sw_counts": dict(sc.SW_COUNTS), "sw_launches": sw_launches,
+           "sw_batches": sw_work["batches"],
+           "sw_device_batches": sw_work["device_batches"],
            "vcf": vcf}
-    return leg, largest["pairs"]
+    return leg, largest["pairs"], sw_largest["pairs"]
 
 
 def call_phase(root):
@@ -257,62 +462,88 @@ def call_phase(root):
     # that no timed leg pays for them
     call_leg("warmup", fasta, bams, os.path.join(root, "warmup"),
              ["--force-cpu", "--limiting-interval", "0-30000"])
-    legs = {"gpu": [], "f64": []}
-    batch = None
+    legs = {}
+    batch = sw_batch = None
     for run, label in enumerate(LEG_ORDER):
-        leg, largest = call_leg(label, fasta, bams,
-                                os.path.join(root, f"{label}{run}"),
-                                [] if label == "gpu" else ["--force-cpu"])
+        leg, largest, sw_largest = call_leg(
+            label, fasta, bams, os.path.join(root, f"{label}{run}"),
+            LEG_FLAGS[label])
         calls, _, _ = read_vcf(leg["vcf"])
         leg["calls"] = len(calls)
         leg["recall"] = bench_e2e.recall(calls, truth)
         emit("call", run=run, **leg)
-        if label == "gpu":
-            check(leg["launches"] > 0, "gpu leg launched no kernel")
+        on_card = label.startswith("gpu")
+        sw_on_card = "--pallas-sw" in LEG_FLAGS[label]
+        if on_card:
+            check(leg["launches"] > 0, f"{label} leg launched no kernel")
             check(leg["dispatch"]["host"] == 0
                   and leg["dispatch"]["device"] > 0,
-                  f"gpu leg dispatch {leg['dispatch']}")
+                  f"{label} leg dispatch {leg['dispatch']}")
             batch = batch or largest
         else:
             check(leg["launches"] == 0 and leg["dispatch"]["device"] == 0,
-                  "f64 leg touched the device")
-        legs[label].append(leg)
-    sites = {k: [read_sites(leg["vcf"]) for leg in v] for k, v in legs.items()}
-    for label, runs in sites.items():
-        check(all(s == runs[0] for s in runs),
-              f"{label} legs disagree with each other")
-    sg, sf = sites["gpu"][0], sites["f64"][0]
+                  f"{label} leg ran the pair-HMM on the device")
+        if sw_on_card:
+            check(leg["sw_launches"] > 0 and leg["sw_counts"]["device"] > 0,
+                  f"{label} leg: SW launches {leg['sw_launches']}, "
+                  f"counts {leg['sw_counts']}")
+            sw_batch = sw_batch or sw_largest
+        else:
+            check(leg["sw_launches"] == 0
+                  and leg["sw_counts"]["device"] == 0,
+                  f"{label} leg ran the SW on the device")
+        legs[label] = leg
+    for plain_sw, card_sw in SAME_VCF:
+        with open(legs[plain_sw]["vcf"], "rb") as a, \
+                open(legs[card_sw]["vcf"], "rb") as b:
+            check(a.read() == b.read(), f"the {card_sw} VCF is not "
+                  f"byte-identical to the {plain_sw} one")
+    sg, sf = read_sites(legs["gpu"]["vcf"]), read_sites(legs["f64"]["vcf"])
     check([k for k, _ in sg] == [k for k, _ in sf],
           "gpu and f64 legs call different sites/alleles/genotypes")
     dq = max((abs(a - b) for (_, a), (_, b) in zip(sg, sf)), default=0.0)
     check(dq <= QUAL_TOL, f"QUAL differs by {dq} > {QUAL_TOL}")
-    gpu = legs["gpu"][0]
+    gpu = legs["gpu"]
     check(gpu["recall"] >= MIN_RECALL, f"recall {gpu['recall']}")
     emit("compare", sites=len(sg), max_qual_diff=dq, recall=gpu["recall"],
-         **{f"{k}_wall_s": [leg["wall_s"] for leg in v]
-            for k, v in legs.items()},
-         **{f"{k}_pairhmm_s": [leg["pairhmm_s"] for leg in v]
-            for k, v in legs.items()})
-    return gpu, batch, (fasta, bams, sg)
+         vcfs_identical=[list(p) for p in SAME_VCF],
+         **{f"{k}_wall_s": leg["wall_s"] for k, leg in legs.items()},
+         **{f"{k}_pairhmm_s": leg["pairhmm_s"] for k, leg in legs.items()})
+    return gpu, legs["gpu_sw"], batch, sw_batch, (fasta, bams, sg)
 
 
-def trace_phase(root, fasta, bams, sites):
-    """One more card leg under the profiler (--profile-dir): how much of the
-    run the card is busy.  It runs last, since the profiler's hooks can
-    slow later launches; the timed legs run untraced."""
-    prof = os.path.join(root, "prof")
+def sw_main_path_phase(pairs, dev) -> dict:
+    """The largest realignment SW batch of the first card leg, replayed at
+    the main path's own settings: kernel, plain version and native aligner
+    agree, each timed."""
+    from lorikeet_tpu.ops.smith_waterman import (
+        ALIGNMENT_TO_BEST_HAPLOTYPE_SW_PARAMETERS, OverhangStrategy,
+    )
+    return sw_phase("sw_main_path", pairs,
+                    ALIGNMENT_TO_BEST_HAPLOTYPE_SW_PARAMETERS,
+                    OverhangStrategy.SOFTCLIP, dev, timed=True,
+                    phase="sw_main_path")
+
+
+def trace_phase(root, fasta, bams, sites, label):
+    """The card leg ``label`` once more under the profiler (--profile-dir):
+    how much of the run the card is busy.  It runs last, since the
+    profiler's hooks can slow later launches; the timed legs run
+    untraced."""
+    prof = os.path.join(root, f"prof_{label}")
     try:
-        traced, _ = call_leg("gpu_traced", fasta, bams,
-                             os.path.join(root, "traced"),
-                             ["--profile-dir", prof])
+        traced, _, _ = call_leg(f"{label}_traced", fasta, bams,
+                                os.path.join(root, f"traced_{label}"),
+                                [*LEG_FLAGS[label], "--profile-dir", prof])
         busy = device_busy(os.path.join(prof, "trace.json"),
                            traced["wall_s"])
     except Exception as exc:  # noqa: BLE001 — the trace is a measurement
         # only; the checked legs already ran the same path untraced
-        emit("trace", error=repr(exc))
+        emit("trace", leg=label, error=repr(exc))
         return
-    check(read_sites(traced["vcf"]) == sites, "traced leg calls differ")
-    emit("trace", **busy)
+    check(read_sites(traced["vcf"]) == sites, f"traced {label} leg calls "
+          "differ")
+    emit("trace", leg=label, **busy)
 
 
 def device_busy(trace_path: str, wall_s: float) -> dict:
@@ -331,6 +562,9 @@ def device_busy(trace_path: str, wall_s: float) -> dict:
             "pairhmm_kernel_s": seconds(
                 lambda e: e.get("cat") == "kernel"
                 and "grouped_kernel" in e.get("name", "")) if seen else None,
+            "sw_kernel_s": seconds(
+                lambda e: e.get("cat") == "kernel"
+                and "sw_kernel" in e.get("name", "")) if seen else None,
             "copy_s": copy_s if seen else None,
             "idle_share": 1.0 - (kernel_s + copy_s) / wall_s
             if seen else None}
@@ -353,23 +587,29 @@ def main() -> int:
           f"capability {info['capability']}: the kernel is built for sm_90a")
     check(info["nvidia_smi"], "nvidia-smi did not report the card")
 
-    _build.load("pairhmm")
-    ptxas = [line.strip() for line in _build.BUILD_LOG.get(
-        "pairhmm", "").splitlines() if "registers" in line or "spill" in line]
-    emit("build", seconds=_build.BUILD_SECONDS["pairhmm"], ptxas=ptxas)
+    _build.load_all(KERNEL_SOURCES)     # one nvcc per source, together
+    for name in KERNEL_SOURCES:
+        ptxas = [line.strip() for line in _build.BUILD_LOG.get(
+            name, "").splitlines() if "registers" in line or "spill" in line]
+        emit("build", kernel=name, seconds=_build.BUILD_SECONDS[name],
+             ptxas=ptxas)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     checks = [kernel_phase("region", region_pairs(rng), dev, timed=True),
               kernel_phase("long", long_pairs(rng), dev, timed=False)]
+    sw_checks = sw_kernel_phase(rng, dev)
 
     with tempfile.TemporaryDirectory() as root:
-        gpu, batch, dataset = call_phase(root)
-        # the main path's largest batch, replayed after the counted run:
-        # the kernel at the shapes the main path gives it
+        gpu, gpu_sw, batch, sw_batch, dataset = call_phase(root)
+        # the main path's largest batches, replayed after the counted run:
+        # each kernel at the shapes the main path gives it
         main_batch = kernel_phase("main_path", batch, dev, timed=True)
-        trace_phase(root, *dataset)
+        sw_main = sw_main_path_phase(sw_batch, dev)
+        for label in ("gpu", "gpu_sw"):
+            trace_phase(root, *dataset, label)
     checks.append(main_batch)
+    sw_checks.append(sw_main)
 
     check("jax" not in sys.modules, "jax was imported")
     print(json.dumps({"kernels": [{
@@ -378,7 +618,14 @@ def main() -> int:
         "replaces": "lorikeet_tpu/ops/pairhmm_pallas.py:461",
         "launches": gpu["launches"],
         "max_abs_err": max(c["max_abs_err_vs_plain"] for c in checks),
-        "ms": main_batch["ms"], "plain_ms": main_batch["plain_ms"]}]}),
+        "ms": main_batch["ms"], "plain_ms": main_batch["plain_ms"]}, {
+        "name": "sw_align", "route": "cuda",
+        "source": "lorikeet_tpu_torch/csrc/sw.cu",
+        "replaces": "lorikeet_tpu/ops/sw_pallas.py:59",
+        "launches": gpu_sw["sw_launches"],
+        # exact: 0.0 when every (CIGAR, offset) matched, as checked above
+        "max_abs_err": float(max(c.get("mismatches", 0) for c in sw_checks)),
+        "ms": sw_main["ms"], "plain_ms": sw_main["plain_ms"]}]}),
         flush=True)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

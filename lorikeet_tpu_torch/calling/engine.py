@@ -94,7 +94,8 @@ class CallerConfig:
     # pair-HMM on the CUDA kernel (None: when a card is present; False:
     # the exact f64 host kernel)
     use_cuda: bool | None = None
-    # batch realignment SW on the device (not ported yet: True raises)
+    # batch realignment SW on the CUDA kernel (ops/sw_cuda.py), independent
+    # of use_cuda; False: the native host aligner
     use_cuda_sw: bool = False
     max_alt_alleles: int = 6
     # mixed technologies: per-sample read type ("short" | "long"),

@@ -6,9 +6,9 @@ each read is Smith-Waterman-aligned to the haplotype with its best
 likelihood and the alignment is composed through the haplotype-vs-reference
 CIGAR.  The CIGAR composition helpers are jax-free and imported from the
 JAX package; this module owns the realignment loop, whose best-haplotype
-search comes from the port's likelihoods and whose SW runs on the native
-host aligner.
-The device SW (the TPU package's ``ops/sw_pallas.py``) is not ported yet.
+search comes from the port's likelihoods.  The SW runs on the native host
+aligner, or batched on the CUDA kernel (ops/sw_cuda.py) with
+``use_cuda_sw``, bit-identical either way.
 """
 from __future__ import annotations
 
@@ -29,11 +29,9 @@ def realign_reads_to_best_haplotype(likelihoods, haplotypes,
     """Replace each evidence read with a copy realigned via its best
     haplotype; returns the number of realigned reads.  ``haplotypes`` are
     AssembledHaplotypes whose cigars are vs the padded window at
-    ``window_start``.  ``use_cuda_sw`` (batched device SW) raises
-    NotImplementedError: that kernel is not ported yet."""
-    if use_cuda_sw:
-        raise NotImplementedError(
-            "device Smith-Waterman is not ported yet; run without use_cuda_sw")
+    ``window_start``.  With ``use_cuda_sw`` the per-read SW alignments of
+    the region run as one batch on the device (ops.sw_cuda, SW_DEVICE);
+    the native host aligner stays the default."""
     n = 0
     ref_hap = next((h for h in haplotypes if h.is_ref), None)
     ref_bases = (np.frombuffer(ref_hap.bases, np.uint8)
@@ -65,10 +63,17 @@ def realign_reads_to_best_haplotype(likelihoods, haplotypes,
     if not jobs:
         return 0
 
-    aligned = [align(hap.bases, core.tobytes(),
-                     ALIGNMENT_TO_BEST_HAPLOTYPE_SW_PARAMETERS,
-                     OverhangStrategy.SOFTCLIP)
-               for _, _, hap, _, _, core in jobs]
+    if use_cuda_sw:
+        from lorikeet_tpu_torch.ops.sw_cuda import align_batch_cuda
+        aligned = align_batch_cuda(
+            [(hap.bases, core.tobytes()) for _, _, hap, _, _, core in jobs],
+            ALIGNMENT_TO_BEST_HAPLOTYPE_SW_PARAMETERS,
+            OverhangStrategy.SOFTCLIP)
+    else:
+        aligned = [align(hap.bases, core.tobytes(),
+                         ALIGNMENT_TO_BEST_HAPLOTYPE_SW_PARAMETERS,
+                         OverhangStrategy.SOFTCLIP)
+                   for _, _, hap, _, _, core in jobs]
 
     pad_cache = {}   # hap id -> pre-padded hap-vs-ref cigar
     for (s, i, hap, lead_s, tail_s, core_seq), res in zip(jobs, aligned):

@@ -5,7 +5,9 @@ the `call` path with the pair-HMM on the CUDA kernel.  The argument parser
 and the jax-free helpers are lorikeet_tpu.cli's; this module owns the
 entry point and the config builders, which point at the port's processing
 and map the device flags: ``--force-cpu`` selects the exact f64 host
-kernel, ``--pallas-sw`` and ``--devices N`` (N > 1) are refused.
+pair-HMM, ``--pallas-sw`` runs the realignment Smith-Waterman on the CUDA
+kernel (independent of ``--force-cpu``, and an error without a card), and
+``--devices N`` (N > 1) is refused.
 """
 from __future__ import annotations
 
@@ -124,6 +126,7 @@ def _base_config(args):
         # --force-cpu selects the exact f64 native kernel; otherwise the
         # CUDA kernel runs when a card is present
         use_cuda=False if args.force_cpu else None,
+        use_cuda_sw=bool(getattr(args, "pallas_sw", False)),
     )
 
 
@@ -172,10 +175,6 @@ def main(argv=None) -> int:
     iv = parse_limiting_interval(args.limiting_interval)
     limit = (iv.start, iv.end) if iv is not None else None
 
-    if getattr(args, "pallas_sw", False):
-        print("--pallas-sw: the device Smith-Waterman is not ported yet; "
-              "drop the flag", file=sys.stderr)
-        return 2
     if str(getattr(args, "devices", "auto")) not in ("auto", "1"):
         print(f"--devices {args.devices}: one CUDA device is supported; "
               "pass --devices 1 or auto", file=sys.stderr)

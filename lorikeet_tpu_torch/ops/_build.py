@@ -58,29 +58,47 @@ def nvcc_version(nvcc: str) -> str:
 def load(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if no library for its current source
     exists, then load it."""
+    return load_all((name,))[name]
+
+
+def load_all(names) -> dict:
+    """``load`` for several libraries: the missing ones are compiled by one
+    ``nvcc`` each, all started together.  Returns {name: CDLL}."""
     with _LOCK:
-        if name in _LIBS:
-            return _LIBS[name]
-        src = os.path.join(CSRC, f"{name}.cu")
-        with open(src, "rb") as fh:
-            digest = hashlib.sha256(
-                fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so_path = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
-        t0 = time.perf_counter()
-        if not os.path.exists(so_path):
-            nvcc = find_nvcc()
-            if nvcc is None:
-                raise RuntimeError(f"cannot build {src}: no nvcc found "
-                                   "(set CUDA_HOME or put nvcc on PATH)")
-            os.makedirs(BUILD_DIR, exist_ok=True)
+        builds = {}
+        for name in names:
+            if name in _LIBS:
+                continue
+            src = os.path.join(CSRC, f"{name}.cu")
+            with open(src, "rb") as fh:
+                digest = hashlib.sha256(
+                    fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+            so_path = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
             tmp = f"{so_path}.{os.getpid()}.tmp"
-            res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, src],
-                                 capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src}:\n{res.stderr}")
-            BUILD_LOG[name] = res.stderr
-            os.replace(tmp, so_path)
-        BUILD_SECONDS[name] = time.perf_counter() - t0
-        lib = ctypes.CDLL(so_path)
-        _LIBS[name] = lib
-        return lib
+            proc = None
+            if not os.path.exists(so_path):
+                nvcc = find_nvcc()
+                if nvcc is None:
+                    raise RuntimeError(f"cannot build {src}: no nvcc found "
+                                       "(set CUDA_HOME or put nvcc on PATH)")
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                proc = subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-o", tmp, src], text=True,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+            builds[name] = (src, so_path, tmp, proc, time.perf_counter())
+        try:
+            for name, (src, so_path, tmp, proc, t0) in builds.items():
+                if proc is not None:
+                    _, err = proc.communicate()
+                    if proc.returncode != 0:
+                        raise RuntimeError(f"nvcc failed on {src}:\n{err}")
+                    BUILD_LOG[name] = err
+                    os.replace(tmp, so_path)
+                BUILD_SECONDS[name] = time.perf_counter() - t0
+                _LIBS[name] = ctypes.CDLL(so_path)
+        finally:        # no nvcc outlives a failed build
+            for _, _, _, proc, _ in builds.values():
+                if proc is not None and proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        return {name: _LIBS[name] for name in names}

@@ -1,0 +1,409 @@
+"""Batched Smith-Waterman on a CUDA card: packer, plain torch version, kernel.
+
+Counterpart of lorikeet_tpu/ops/sw_pallas.py.  Every (CIGAR, offset) is
+bit-identical to lorikeet_tpu.ops.smith_waterman.align, the native aligner.
+
+- :func:`align_batch_cuda` is the batch entry point with the contract of
+  ``align_batch_pallas``: the exact-substring shortcut for SOFTCLIP and
+  IGNORE, refs longer than :data:`MAX_REF_LEN` on the scalar ``align``,
+  every other pair on SW_DEVICE.  :data:`SW_COUNTS` says where each pair
+  went.
+- :func:`sw_align_torch` is the plain torch version: the TPU kernel's
+  anti-diagonal wavefront on [B, R+1] int32 tensors (lane = ref row), then a
+  batched traceback by gathers, with the run-length tail on the host.
+- :func:`sw_align` runs the hand-written kernel (``csrc/sw.cu``) for tensors
+  on a CUDA device and the plain version only for tensors on the CPU.  It
+  never falls back: a failed build or launch raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from lorikeet_tpu.ops.smith_waterman import (
+    MATRIX_MIN_CUTOFF, OverhangStrategy, SWParameters, _CIGAR_OPS, _to_bytes,
+    align,
+)
+
+#: longest ref the kernel takes: ref_len + 1 rows of 7 int32 of shared
+#: memory each must fit the 232,448 bytes a CTA may use on an H100
+#: (8192 rows take 229,376).  The TPU kernel's cap was 2047, a VMEM bound.
+MAX_REF_LEN = 8191
+#: torch device the batched path runs on.  Tests set it to "cpu" to run the
+#: kernel's plain torch version through the same path.
+SW_DEVICE = "cuda"
+#: pairs of align_batch_cuda by route: the batched path (kernel, or plain
+#: version on the CPU), the exact-substring shortcut, refs over the cap
+SW_COUNTS = {"device": 0, "shortcut": 0, "scalar_long": 0}
+#: kernel launches made by sw_align in this process
+SW_LAUNCHES = 0
+
+#: int32 of kernel scratch per launch (backtrack slabs); larger batches are
+#: split into several launches
+SCRATCH_BUDGET = 1 << 28
+#: bytes of the plain version's diagonal-major backtrack tensor per chunk
+PLAIN_BT_BUDGET = 1 << 29
+
+_LOW = -(2 ** 30)        # LOW_INIT of the native aligner
+_MIN32 = -(2 ** 31)
+_OPS = ("M", "I", "D")   # traceback states 0, 1, 2
+
+
+def _scratch_len(ref_len, alt_len):
+    """int32 of backtrack slab plus last column and last row per pair."""
+    return (ref_len + 1) * (alt_len + 1) + (ref_len + 1) + (alt_len + 1)
+
+
+def pack_pairs(pairs) -> dict:
+    """(ref, alt) byte pairs as one byte array and an int64 table
+    [B, 6] of ref_off, ref_len, alt_off, alt_len, scratch_off, cigar_off;
+    plus the host sizes the kernel wrapper allocates from."""
+    refs = [_to_bytes(r) for r, _ in pairs]
+    alts = [_to_bytes(a) for _, a in pairs]
+    rl = np.fromiter(map(len, refs), np.int64, len(refs))
+    al = np.fromiter(map(len, alts), np.int64, len(alts))
+    if not pairs:
+        raise ValueError("sw: empty batch")
+    if rl.min() <= 0 or al.min() <= 0:
+        raise ValueError("sw: non-empty sequences required")
+    ref_off = np.concatenate([[0], np.cumsum(rl + al)[:-1]])
+    alt_off = ref_off + rl
+    scratch = _scratch_len(rl, al)
+    cig = rl + al + 4
+    meta = np.stack([ref_off, rl, alt_off, al,
+                     np.cumsum(scratch) - scratch, np.cumsum(cig) - cig], 1)
+    seqs = np.frombuffer(bytearray().join(s for pair in zip(refs, alts)
+                                          for s in pair), np.uint8)
+    return {"seqs": seqs, "meta": meta, "rows_max": int(rl.max()) + 1,
+            "scratch_len": int(scratch.sum()), "cigar_len": int(cig.sum())}
+
+
+def to_tensors(arrays: dict, device) -> dict:
+    """The packed arrays on ``device`` (host sizes stay ints)."""
+    return {k: torch.from_numpy(v).to(device) if isinstance(v, np.ndarray)
+            else v for k, v in arrays.items()}
+
+
+def _host_tail(strategy, seg, states, steps, p1, p2):
+    """sw.cpp's run-length loop over a walked path (states 0/1/2 and step
+    lengths, end to start) and the strategy tail: (cigar, offset)."""
+    lce = []
+    if seg > 0 and strategy == OverhangStrategy.SOFTCLIP:
+        lce.append(("S", seg))
+        seg = 0
+    state = 0
+    for st, n in zip(states, steps):
+        if st == state:
+            seg += n
+        else:
+            if seg > 0:
+                lce.append((_OPS[state], seg))
+            seg, state = n, st
+    if strategy == OverhangStrategy.SOFTCLIP:
+        lce.append((_OPS[state], seg))
+        if p2 > 0:
+            lce.append(("S", p2))
+        offset = p1
+    elif strategy == OverhangStrategy.IGNORE:
+        lce.append((_OPS[state], seg + p2))
+        offset = p1 - p2
+    else:
+        lce.append((_OPS[state], seg))
+        if p1 > 0:
+            lce.append(("D", p1))
+        elif p2 > 0:
+            lce.append(("I", p2))
+        offset = 0
+    lce.reverse()
+    return lce, offset
+
+
+def _plain_chunk(seqs, meta, parameters, strategy):
+    """DP, start points and traceback of one chunk of pairs (plain torch)."""
+    i32 = torch.int32
+    dev = seqs.device
+    w_match, w_mis = parameters.match_value, parameters.mismatch_penalty
+    w_open, w_ext = parameters.gap_open_penalty, parameters.gap_extend_penalty
+    B = meta.shape[0]
+    R = meta[:, 1:2]
+    A = meta[:, 3:4]
+    rows = int(R.max()) + 1
+    ndiag = int((R + A).max())
+    lane = torch.arange(rows, device=dev)[None, :]
+    last = seqs.numel() - 1
+    in_ref = (lane >= 1) & (lane <= R)
+    ref = torch.where(in_ref, seqs[(meta[:, 0:1] + lane - 1).clamp(0, last)]
+                      .to(i32), -1)
+    weight = torch.tensor([w_mis, w_match], dtype=i32, device=dev)
+    ramp = strategy in (OverhangStrategy.INDEL, OverhangStrategy.LEADING_INDEL)
+
+    def shift(x, fill):
+        """x moved one lane up (row i reads row i-1), ``fill`` at lane 0."""
+        out = torch.roll(x, 1, 1)
+        out[:, 0] = fill
+        return out
+
+    zeros = torch.zeros(B, rows, dtype=i32, device=dev)
+    low = torch.full((B, rows), _LOW, dtype=i32, device=dev)
+    s1 = s2 = zeros                       # sw on diagonals d-1 and d-2
+    bv, gv = low, zeros                   # best_gap_v, its length (d-1)
+    bh, gh = low, zeros                   # best_gap_h, its length (per row)
+    bt = torch.zeros(B, ndiag + 1, rows, dtype=i32, device=dev)
+    last_col = torch.full((B, rows), _MIN32, dtype=i32, device=dev)
+    last_row = torch.full((B, ndiag + 1), _MIN32, dtype=i32, device=dev)
+    r_idx = R.clamp(max=rows - 1)
+    for d in range(1, ndiag + 1):
+        j = d - lane
+        active = in_ref & (j >= 1) & (j <= A)
+        alt = seqs[(meta[:, 2:3] + j - 1).clamp(0, last)].to(i32)
+        step_diag = shift(s2, 0) + weight[(ref == alt).long()]
+        prev_gap_v = shift(s1, 0) + w_open             # sw(i-1, j) + open
+        bv_ext = shift(bv, _LOW) + w_ext
+        down = torch.maximum(prev_gap_v, bv_ext)
+        kd = torch.where(prev_gap_v > bv_ext, 1, shift(gv, 0) + 1)
+        prev_gap_h = s1 + w_open                       # sw(i, j-1) + open
+        bh_ext = bh + w_ext
+        right = torch.maximum(prev_gap_h, bh_ext)
+        ki = torch.where(prev_gap_h > bh_ext, 1, gh + 1)
+        # priority diag >= right >= down
+        take_diag = (step_diag >= down) & (step_diag >= right)
+        take_right = ~take_diag & (right >= down)
+        chosen = torch.where(take_diag, step_diag,
+                             torch.where(take_right, right, down))
+        btr = torch.where(take_diag, 0, torch.where(take_right, -ki, kd))
+        new_s = torch.where(active, chosen.clamp(min=MATRIX_MIN_CUTOFF), 0)
+        # row 0 (lane 0) and column 0 (lane d) hold the boundary values
+        edge = w_open + (d - 1) * w_ext if ramp else 0
+        new_s[:, 0] = edge
+        if d < rows:
+            new_s[:, d] = edge
+        bt[:, d] = torch.where(active, btr, 0)
+        last_col = torch.where(active & (j == A), new_s, last_col)
+        last_row[:, d] = new_s.gather(1, r_idx)[:, 0]
+        bv = torch.where(active, down, _LOW)
+        gv = torch.where(active, kd, 0)
+        bh = torch.where(active, right, _LOW)
+        gh = torch.where(active, ki, 0)
+        s2, s1 = s1, new_s
+
+    # start point (sw.cpp: best last-column row, later i wins; then unless
+    # LEADING_INDEL the last row, greater or equal and closer to the corner)
+    R1, A1 = R[:, 0], A[:, 0]
+    seg = torch.zeros(B, dtype=torch.int64, device=dev)
+    if strategy == OverhangStrategy.INDEL:
+        p1, p2 = R1.clone(), A1.clone()
+    else:
+        col = torch.where(in_ref, last_col, _MIN32)
+        m0 = col.amax(1)
+        p1 = torch.where(col == m0[:, None], lane, 0).amax(1)
+        p2 = A1.clone()
+        if strategy != OverhangStrategy.LEADING_INDEL:
+            jr = torch.arange(ndiag + 1, device=dev)[None, :] - R   # column j
+            cand = (jr >= 1) & (jr <= A)
+            rowv = torch.where(cand, last_row, _MIN32)
+            mstar = rowv.amax(1)
+            cand &= rowv == mstar[:, None]
+            big = 1 << 40
+            # least distance to the corner, earliest j at equal distance
+            key = torch.where(cand, (R - jr).abs() * (ndiag + 2) + jr, big)
+            kmin = key.amin(1)
+            dstar, jstar = kmin // (ndiag + 2), kmin % (ndiag + 2)
+            take = (mstar > m0) | ((mstar == m0) & (dstar < (p1 - p2).abs()))
+            p1 = torch.where(take, R1, p1)
+            p2 = torch.where(take, jstar, p2)
+            seg = torch.where(take, A1 - jstar, seg)
+
+    # batched traceback: one gather per step, every pair at once
+    flat = bt.view(B, -1)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    states, steps = [], []
+    for it in range(int((p1 + p2).max())):
+        if it % 32 == 0 and bool(done.all()):
+            break
+        at = ((p1 + p2) * rows + p1).clamp(min=0)
+        btr = flat.gather(1, at[:, None])[:, 0].long()
+        is_del, is_ins = btr > 0, btr < 0
+        st = torch.where(is_del, 2, torch.where(is_ins, 1, 0))
+        n = torch.where(is_del | is_ins, btr.abs(), 1)
+        states.append(torch.where(done, -1, st))
+        steps.append(n)
+        p1 = torch.where(done | is_ins, p1, p1 - n)
+        p2 = torch.where(done | is_del, p2, p2 - n)
+        done |= (p1 <= 0) | (p2 <= 0)
+    states = torch.stack(states, 1).cpu().numpy()
+    steps = torch.stack(steps, 1).cpu().numpy()
+    seg, p1, p2 = (x.cpu().numpy() for x in (seg, p1, p2))
+    out = []
+    for b in range(B):
+        k = int(np.argmax(states[b] < 0)) if (states[b] < 0).any() \
+            else states.shape[1]
+        out.append(_host_tail(strategy, int(seg[b]), states[b, :k].tolist(),
+                              steps[b, :k].tolist(), int(p1[b]), int(p2[b])))
+    return out
+
+
+def sw_align_torch(t: dict, parameters: SWParameters,
+                   strategy: int) -> list:
+    """Plain torch version: (cigar, offset) per packed pair, computed on the
+    device of ``t``'s tensors.  Pairs run in chunks whose diagonal-major
+    backtrack tensor stays under PLAIN_BT_BUDGET bytes."""
+    meta = t["meta"]
+    m = meta.cpu().numpy()
+    rl, al = m[:, 1], m[:, 3]
+    order = np.argsort(rl + al, kind="stable")
+    results = [None] * len(order)
+    lo = 0
+    while lo < len(order):
+        hi, rows = lo, 0
+        while hi < len(order):
+            k = order[hi]     # sorted: this pair has the most diagonals yet
+            size = (hi + 1 - lo) * (int(rl[k] + al[k]) + 1) \
+                * (max(rows, int(rl[k])) + 1) * 4
+            if hi > lo and size > PLAIN_BT_BUDGET:
+                break
+            rows = max(rows, int(rl[k]))
+            hi += 1
+        idx = order[lo:hi]
+        chunk = _plain_chunk(t["seqs"], meta[torch.from_numpy(idx).to(
+            meta.device)], parameters, strategy)
+        for k, r in zip(idx, chunk):
+            results[k] = r
+        lo = hi
+    return results
+
+
+_KERNEL = None
+
+
+def _kernel() -> ctypes.CDLL:
+    global _KERNEL
+    if _KERNEL is None:
+        from lorikeet_tpu_torch.ops._build import load
+        lib = load("sw")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.sw_launch.argtypes = [vp] * 5 + [ci] * 7 + [vp]
+        lib.sw_launch.restype = ci
+        lib.sw_max_rows.argtypes = []
+        lib.sw_max_rows.restype = ci
+        if lib.sw_max_rows() != MAX_REF_LEN + 1:
+            raise RuntimeError(f"csrc/sw.cu takes {lib.sw_max_rows()} rows, "
+                               f"sw_cuda.MAX_REF_LEN is {MAX_REF_LEN}")
+        _KERNEL = lib
+    return _KERNEL
+
+
+def _check_inputs(t: dict) -> None:
+    seqs, meta = t["seqs"], t["meta"]
+    for name, x, dtype, ndim in (("seqs", seqs, torch.uint8, 1),
+                                 ("meta", meta, torch.int64, 2)):
+        if x.device != seqs.device or x.dtype != dtype or x.dim() != ndim \
+                or not x.is_contiguous():
+            raise ValueError(f"sw input {name}: want contiguous {ndim}-d "
+                             f"{dtype} on {seqs.device}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    if meta.shape[1] != 6 or meta.shape[0] == 0:
+        raise ValueError(f"sw meta shape {tuple(meta.shape)}: want [B>0, 6]")
+    if not 2 <= t["rows_max"] <= MAX_REF_LEN + 1:
+        raise ValueError(f"sw: ref of {t['rows_max'] - 1} bases, the kernel "
+                         f"takes 1..{MAX_REF_LEN}")
+
+
+def sw_kernel_launch(t: dict, parameters: SWParameters, strategy: int):
+    """Launch csrc/sw.cu on the CUDA tensors of ``t``: returns the int32
+    CIGAR codes and the int32 [B, 2] (length, offset) table, on the card."""
+    global SW_LAUNCHES
+    dev = t["seqs"].device
+    if dev.type != "cuda":
+        raise ValueError(f"sw_kernel_launch: tensors on {dev}, want cuda")
+    _check_inputs(t)
+    lib = _kernel()
+    B = t["meta"].shape[0]
+    scratch = torch.empty(t["scratch_len"], dtype=torch.int32, device=dev)
+    cigar = torch.empty(t["cigar_len"], dtype=torch.int32, device=dev)
+    res = torch.empty(B, 2, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sw_launch(
+            t["seqs"].data_ptr(), t["meta"].data_ptr(), scratch.data_ptr(),
+            cigar.data_ptr(), res.data_ptr(), B, t["rows_max"],
+            parameters.match_value, parameters.mismatch_penalty,
+            parameters.gap_open_penalty, parameters.gap_extend_penalty,
+            int(strategy), stream)
+    if rc != 0:
+        raise RuntimeError(f"sw kernel launch failed: CUDA error {rc} "
+                           f"(B={B}, rows={t['rows_max']})")
+    SW_LAUNCHES += 1
+    return cigar, res
+
+
+def decode(cigar: np.ndarray, res: np.ndarray, meta: np.ndarray) -> list:
+    """Kernel output on the host -> (cigar, offset) per pair, decoded as
+    smith_waterman.align decodes the native codes."""
+    codes = cigar.view(np.uint32)
+    out = []
+    for (n, offset), off in zip(res.tolist(), meta[:, 5].tolist()):
+        out.append(([(_CIGAR_OPS[c & 0xF], c >> 4)
+                     for c in codes[off:off + n].tolist()], offset))
+    return out
+
+
+def sw_align(t: dict, parameters: SWParameters, strategy: int) -> list:
+    """(cigar, offset) per packed pair on the device of ``t``'s tensors:
+    the CUDA kernel for a CUDA device, the plain version
+    (:func:`sw_align_torch`) for the CPU."""
+    dev = t["seqs"].device
+    if dev.type == "cpu":
+        return sw_align_torch(t, parameters, strategy)
+    if dev.type != "cuda":
+        raise ValueError(f"sw_align: unsupported device {dev}")
+    cigar, res = sw_kernel_launch(t, parameters, strategy)
+    return decode(cigar.cpu().numpy(), res.cpu().numpy(),
+                  t["meta"].cpu().numpy())
+
+
+def align_batch_cuda(pairs, parameters: SWParameters,
+                     overhang_strategy: int = OverhangStrategy.SOFTCLIP,
+                     device=None) -> list:
+    """(cigar, offset) per (reference, alternate) pair, bit-identical to
+    smith_waterman.align.  The batched pairs run on ``device`` (default
+    SW_DEVICE) in launches of at most SCRATCH_BUDGET int32 of scratch."""
+    device = torch.device(SW_DEVICE if device is None else device)
+    if device.type == "cuda":
+        from lorikeet_tpu_torch.device import require_cuda
+        require_cuda()
+    results = [None] * len(pairs)
+    todo = []
+    for k, (ref, alt) in enumerate(pairs):
+        ref_b, alt_b = _to_bytes(ref), _to_bytes(alt)
+        assert ref_b and alt_b, "non-empty sequences required"
+        if overhang_strategy in (OverhangStrategy.SOFTCLIP,
+                                 OverhangStrategy.IGNORE):
+            idx = ref_b.rfind(alt_b)
+            if idx >= 0:
+                SW_COUNTS["shortcut"] += 1
+                results[k] = ([("M", len(alt_b))], idx)
+                continue
+        if len(ref_b) > MAX_REF_LEN:
+            SW_COUNTS["scalar_long"] += 1
+            results[k] = align(ref_b, alt_b, parameters, overhang_strategy)
+            continue
+        todo.append((k, ref_b, alt_b))
+    SW_COUNTS["device"] += len(todo)
+    lo = 0
+    while lo < len(todo):
+        hi, used = lo, 0
+        while hi < len(todo):
+            need = _scratch_len(len(todo[hi][1]), len(todo[hi][2]))
+            if hi > lo and used + need > SCRATCH_BUDGET:
+                break
+            used += need
+            hi += 1
+        chunk = todo[lo:hi]
+        t = to_tensors(pack_pairs([(r, a) for _, r, a in chunk]), device)
+        for (k, _, _), res in zip(chunk, sw_align(t, parameters,
+                                                  overhang_strategy)):
+            results[k] = res
+        lo = hi
+    return results

@@ -256,8 +256,10 @@ def _device_activity(cfg) -> bool:
 
 def _configure_devices(cfg):
     """Resolve ``cfg.use_cuda`` once for the run: None becomes
-    torch.cuda.is_available(), True requires a card.  One card only:
-    ``--devices`` must be 'auto' or 1 (there is no device mesh)."""
+    torch.cuda.is_available(), True requires a card.  ``cfg.use_cuda_sw``
+    (independent of use_cuda) requires a card too, unless the tests moved
+    SW_DEVICE to the CPU.  One card only: ``--devices`` must be 'auto' or 1
+    (there is no device mesh)."""
     import torch
 
     from lorikeet_tpu.utils.progress import log
@@ -274,11 +276,18 @@ def _configure_devices(cfg):
         if torch.device(likelihoods.PAIRHMM_DEVICE).type == "cuda":
             from lorikeet_tpu_torch.device import require_cuda
             require_cuda()
+    if cfg.use_cuda_sw:
+        from lorikeet_tpu_torch.ops import sw_cuda
+        if torch.device(sw_cuda.SW_DEVICE).type == "cuda":
+            from lorikeet_tpu_torch.device import require_cuda
+            require_cuda()
 
 
 def _cpu_only_backend(cfg) -> bool:
     """True when no CUDA device is in play (worker processes then cannot
     contend for a card)."""
+    if getattr(cfg, "use_cuda_sw", False):
+        return False
     if getattr(cfg, "use_cuda", None) is not None:
         return not cfg.use_cuda
     import torch

@@ -5,7 +5,9 @@ A simulated 3 kbp x 2 samples x 20x fixture with SNPs and 1-6 bp indels:
 - the device path (the port's kernel twin on the CPU, the JAX package's
   Pallas kernel in interpret mode) calls the same sites, alleles and
   genotypes with QUAL within 0.1 (docs/benchmarks.md:292-298), and every
-  pair-HMM batch went to the device path.
+  pair-HMM batch went to the device path;
+- the batched realignment SW (its plain version on the CPU) leaves the
+  f64 VCF byte-identical.
 """
 import dataclasses
 import os
@@ -38,9 +40,11 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def simulate_fixture(tmp, length=3000, coverage=20, seed=3):
+def simulate_fixture(tmp, length=3000, coverage=20, seed=3,
+                     error_rate=0.001):
     """FASTA + one BAM per sample, with a SNP or 1-6 bp indel every
-    250-450 bp; deterministic in ``seed``."""
+    250-450 bp and base errors at ``error_rate``; deterministic in
+    ``seed``."""
     rng = np.random.default_rng(seed)
     bases = np.frombuffer(b"ACGT", np.uint8)
     ref = bases[rng.integers(0, 4, length)].copy()
@@ -69,7 +73,8 @@ def simulate_fixture(tmp, length=3000, coverage=20, seed=3):
     for s in range(2):
         recs = simulate_reads(ref, variants, coverage=coverage,
                               read_length=100, seed=11 + s,
-                              allele_fraction=0.5, sample=f"s{s}")
+                              allele_fraction=0.5, sample=f"s{s}",
+                              error_rate=error_rate)
         recs.sort(key=lambda r: r.pos)
         bam = os.path.join(tmp, f"s{s}.bam")
         write_bam(bam, ["c0"], [length], recs)
@@ -193,11 +198,23 @@ def test_configure_devices(monkeypatch):
         tproc._device_activity(cfg)
 
 
-def test_device_sw_is_refused(fixture3k, tmp_path):
-    fasta, bams, _ = fixture3k
-    cfg = tengine.CallerConfig(use_cuda=False, use_cuda_sw=True)
-    with pytest.raises(NotImplementedError, match="Smith-Waterman"):
-        tproc.run_call(fasta, bams, str(tmp_path / "o"), cfg)
+def test_device_sw_vcf_byte_identical(tmp_path, monkeypatch):
+    """The slice: `call` with the batched SW (its plain version on the CPU)
+    and the exact f64 pair-HMM writes the JAX package's native-SW VCF byte
+    for byte.  Base errors at 0.01 send enough reads to the SW."""
+    from lorikeet_tpu_torch.ops import sw_cuda
+    fasta, bams, _ = simulate_fixture(str(tmp_path), error_rate=0.01)
+    monkeypatch.setattr(sw_cuda, "SW_DEVICE", "cpu")
+    monkeypatch.setattr(sw_cuda, "SW_COUNTS",
+                        dict.fromkeys(sw_cuda.SW_COUNTS, 0))
+    vj = jax_run_call(fasta, bams, str(tmp_path / "jax"),
+                      jengine.CallerConfig(use_pallas=False))
+    vt = tproc.run_call(fasta, bams, str(tmp_path / "torch"),
+                        tengine.CallerConfig(use_cuda=False, use_cuda_sw=True))
+    with open(vj, "rb") as a, open(vt, "rb") as b:
+        assert a.read() == b.read()
+    assert sw_cuda.SW_COUNTS["device"] >= 20
+    assert sw_cuda.SW_COUNTS["shortcut"] > 0
 
 
 def test_distributed_context(monkeypatch):

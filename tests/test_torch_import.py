@@ -34,7 +34,8 @@ def _port_modules():
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
     assert {"lorikeet_tpu_torch.cli", "lorikeet_tpu_torch.processing",
-            "lorikeet_tpu_torch.ops.pairhmm_cuda"} <= set(mods)
+            "lorikeet_tpu_torch.ops.pairhmm_cuda",
+            "lorikeet_tpu_torch.ops.sw_cuda"} <= set(mods)
     res = _run("import importlib, sys\n"
                f"for m in {mods!r}: importlib.import_module(m)\n"
                "assert 'jax' not in sys.modules, 'jax imported'\n"
@@ -83,11 +84,15 @@ def test_cli_call_runs_without_jax(tmp_path):
 
 
 def test_cli_refuses_unported_device_flags(tmp_path):
-    for extra, msg in ((["--pallas-sw"], "--pallas-sw"),
-                       (["--devices", "4"], "--devices")):
+    """--devices 4 is refused; --pallas-sw without a card is an error that
+    names CUDA, never a silent host run."""
+    for extra, rc, msg in ((["--devices", "4"], 2, "--devices"),
+                           (["--pallas-sw"], 1, "CUDA")):
+        env = _env()
+        env["CUDA_VISIBLE_DEVICES"] = ""
         res = subprocess.run(
             [sys.executable, "-m", "lorikeet_tpu_torch.cli", "call", "-t",
              "1", "-r", "x.fna", "-b", "x.bam", "-o", str(tmp_path), *extra],
-            cwd=str(tmp_path), env=_env(), capture_output=True, text=True,
+            cwd=str(tmp_path), env=env, capture_output=True, text=True,
             timeout=120)
-        assert res.returncode == 2 and msg in res.stderr, res.stderr
+        assert res.returncode == rc and msg in res.stderr, res.stderr
