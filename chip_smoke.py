@@ -7,41 +7,62 @@ Phases, one JSON line each; any failure exits non-zero without the final
 ``ok`` line:
 
 1. probe   torch/CUDA versions, the card, its capability (9, 0), nvcc.
-2. build   compile csrc/pairhmm.cu and csrc/sw.cu for sm_90a from the
-           checkout, in parallel, and print their ptxas lines.
+2. build   compile csrc/pairhmm.cu (grouped and flat kernel) and csrc/sw.cu
+           for sm_90a from the checkout, in parallel, and print their ptxas
+           lines.
 3. kernel  region-shaped pairs (64 regions x 6 haplotypes of 300-650 bp x
            40 reads of 100 bp, with N, IUPAC and unknown bytes and duplicate
-           tuples) and a long-read batch (500 bp and 3 kb reads): the kernel
-           against its plain torch version on the card (|d log10| <= 1e-4 on
-           rows above -28), and after the f64 escalation against the native
-           f64 kernel (<= 2e-3); median times over >= 5 runs (CUDA events).
-4. sw_kernel  the Smith-Waterman kernel against its plain torch version and
+           tuples) and a long-read batch (500 bp and 3 kb reads): the
+           grouped kernel against its plain torch version on the card
+           (|d log10| <= 1e-4 on rows above -28), and after the f64
+           escalation against the native f64 kernel (<= 2e-3); median times
+           over >= 5 runs (CUDA events).
+4. flat_kernel  the same two pair sets, one row per pair, through
+           pairhmm_forward_flat on the card: the flat kernel against its
+           plain version and against the grouped kernel's results for the
+           same pairs (both <= 1e-4), timed like the grouped one.
+5. sw_kernel  the Smith-Waterman kernel against its plain torch version and
            the native aligner, exactly, on three batches: `region` (64
            haplotypes of 300-650 bp x 40 reads of 100 bp with 1-3
            mismatches and a 1-6 bp indel), `strategies` (every overhang
            strategy x parameter set) and `long` (1-3 kb reads against
            haplotypes near the cap, and refs above it on the scalar route).
-5. call    `lorikeet_tpu_torch.cli call -t 1` on a simulated 1 Mbp x 2
+6. call    `lorikeet_tpu_torch.cli call -t 1` on a simulated 1 Mbp x 2
            samples x 30x genome, in turns after a short warm-up run: a card
            leg with the SW on the card (--pallas-sw), the exact f64 host
            pair-HMM (--force-cpu), the f64 pair-HMM with the SW on the card
-           (--force-cpu --pallas-sw), then the default card leg (native
-           host SW).  Same sites, alleles and genotypes, QUAL within 0.1,
-           recall >= 0.99, every pair-HMM batch of a card leg on the card,
-           realignment pairs of a --pallas-sw leg on the SW kernel, and the
-           VCFs byte-identical with and without --pallas-sw (card legs; f64
-           legs).
-6. main_path  the largest pair-HMM batch of the first card leg, replayed:
-           kernel against the plain version, and both timed.
-7. sw_main_path  the largest realignment SW batch of the first card leg,
+           (--force-cpu --pallas-sw), the default card leg (native host
+           SW), then a card leg with the device activity chain
+           (LORIKEET_DEVICE_ACTIVITY=1).  Same sites, alleles and genotypes,
+           QUAL within 0.1, recall >= 0.99, every pair-HMM batch of a card
+           leg on the card, realignment pairs of a --pallas-sw leg on the SW
+           kernel, every span's activity of the device-activity leg through
+           the device chain, and the VCFs byte-identical with and without
+           --pallas-sw (card legs; f64 legs).
+7. main_path  the largest pair-HMM batch of the first card leg, replayed:
+           grouped kernel against the plain version, both timed; and the
+           same batch one row per pair through the flat kernel
+           (flat_kernel line `main_path`).
+8. sw_main_path  the largest realignment SW batch of the first card leg,
            replayed: kernel, plain version and native aligner, all timed.
-8. trace   the default card leg and the --pallas-sw one again, each under
+9. region_batch  region_batch_step at world size 1 on the flattened
+           main-path batch with sample ids and depths from the seed: lk
+           against the f64 host kernel after the escalation rule (<= 2e-3),
+           the depth totals against numpy.
+10. activity  smoothed_activity_device on the longest span of the
+           device-activity leg (its real gls and HQ means) against the host
+           active_probabilities + band_pass_smooth (atol 2e-3), timed.
+11. dryrun  parallel.dryrun.dryrun(1) on the card: the sharded activity
+           step, the region-batch step and a small `call` over a planted SNP.
+12. trace  the default card leg and the --pallas-sw one again, each under
            torch.profiler, for the share of the run the card sits idle.
 
-The line before the last lists both kernels (launches in the card leg
-that runs each, largest error against the plain version, main-path
-times), then the card's name and power limit; the last is the ``ok``
-line.  Exits 1 when there is no CUDA device.  Needs one card, no network.
+The line before the last lists the three kernels (launches on the path that
+runs each, counted from 0 just before it; largest error against the plain
+version; main-path times; the bound, the least time the card could take for
+the same work), then the card's name and power limit; the last is the
+``ok`` line.  Exits 1 when there is no CUDA device.  Needs one card, no
+network.
 """
 import contextlib
 import io
@@ -56,15 +77,40 @@ EXACT_TOL = 2e-3         # after f64 escalation vs the native f64 kernel
 QUAL_TOL = 0.1           # GPU leg vs f64 leg (docs/benchmarks.md:292-298)
 MIN_RECALL = 0.99
 GENOME_KBP = 1000
+ACTIVITY_TOL = 2e-3      # device activity chain (f32) vs the host chain
 TIMED_RUNS = 7
+#: published peaks of one H100 SXM (NVIDIA's data sheet): device memory
+#: bytes/s, f32 operations/s outside the tensor cores, and int32
+#: operations/s (64 INT32 lanes an SM against 128 FP32 lanes whose FMA counts
+#: twice: a quarter of the f32 figure)
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_OPS_S = 67e12
+PEAK_I32_OPS_S = PEAK_F32_OPS_S / 4
+#: operations per DP cell that the function needs, counted term by term
+#: from its recurrence; index arithmetic, bounds tests, base-bit tests and
+#: whatever depends on the read row alone (1 - eps, eps/3, mm, 1 - gg:
+#: hoisted out of the cell loop) are not counted.
+#: pair-HMM (csrc/pairhmm.cu), f32 multiplies and adds: M = prior * (Pm * mm
+#: + Ps * (1 - gg)) 4; I = am * mi + ai * gg 3; D = M * md + D * gg 3; the
+#: I + D the next M reads 1; the rescaling of five values and the maximum of
+#: three, once in 8 diagonals, 1; the last row's sum is 2 / R and left out.
+PAIRHMM_OPS_PER_CELL = 12
+#: Smith-Waterman (csrc/sw.cu), int32, with the gap lengths that the native
+#: recurrence carries: substitution score (compare, select, add) 3; each of
+#: the two gaps (open add, extend add, compare, value select, length add,
+#: length select) 6; the choice of three (two maxima, two compares, a
+#: negation and two selects for the backtrack value) 7; the floor 1.
+SW_OPS_PER_CELL = 23
 #: csrc/<name>.cu of every kernel of the main path
 KERNEL_SOURCES = ("pairhmm", "sw")
 #: the e2e legs in turns, so that drift on the host hits both alike
-LEG_ORDER = ("gpu_sw", "f64", "f64_sw", "gpu")
+LEG_ORDER = ("gpu_sw", "f64", "f64_sw", "gpu", "gpu_act")
 #: `call` flags of each leg: "gpu" is the default path on a card (native
 #: host SW), the "_sw" legs run the realignment SW on the card
 LEG_FLAGS = {"gpu": [], "gpu_sw": ["--pallas-sw"], "f64": ["--force-cpu"],
-             "f64_sw": ["--force-cpu", "--pallas-sw"]}
+             "f64_sw": ["--force-cpu", "--pallas-sw"], "gpu_act": []}
+#: the leg that runs the activity chain on the card
+LEG_ENV = {"gpu_act": {"LORIKEET_DEVICE_ACTIVITY": "1"}}
 #: legs whose VCFs must be byte-identical: only the SW's device differs
 SAME_VCF = (("gpu", "gpu_sw"), ("f64", "f64_sw"))
 
@@ -95,6 +141,21 @@ def cuda_median_ms(fn, runs: int = TIMED_RUNS) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def bound(ops: float, peak_ops_s: float, nbytes: int) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the peak rate for their type and the bytes (each input read once,
+    each output written once) over the memory rate."""
+    ops_ms = ops / peak_ops_s * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_ops": ops, "bound_bytes": nbytes}
+
+
+def tensor_bytes(*tensors) -> int:
+    return int(sum(x.numel() * x.element_size() for x in tensors))
 
 
 def region_pairs(rng, n_regions=64, n_haps=6, n_reads=40, read_len=100):
@@ -182,7 +243,10 @@ def kernel_phase(name, pairs, dev, timed: bool) -> dict:
            "rpad": int(arrays["quals"].shape[1]),
            "cells": int(sum(uniq.values())),
            "max_abs_err_vs_plain": err, "max_abs_err_vs_f64": err64,
-           "escalated_rows": int((~keep).sum())}
+           "escalated_rows": int((~keep).sum()),
+           # unique pairs only: duplicate tuples share one table cell
+           **bound(PAIRHMM_OPS_PER_CELL * sum(uniq.values()), PEAK_F32_OPS_S,
+                   tensor_bytes(*t.values()) + 4 * len(uniq))}
     if timed:
         ms = cuda_median_ms(lambda: pc.pairhmm_grouped_cuda(t))
         plain_ms = cuda_median_ms(lambda: pc.pairhmm_sweep_torch(t),
@@ -194,6 +258,157 @@ def kernel_phase(name, pairs, dev, timed: bool) -> dict:
                    gcups=out["cells"] / (ms * 1e-3) / 1e9,
                    plain_gcups=out["cells"] / (plain_ms * 1e-3) / 1e9)
     emit("kernel", batch=name, **out)
+    return out
+
+
+def flat_kernel_phase(name, pairs, dev, timed: bool) -> dict:
+    """``pairs`` one row per pair through pairhmm_forward_flat on the card:
+    against the plain version and against the grouped kernel's results for
+    the same pairs."""
+    import numpy as np
+    import torch
+
+    from lorikeet_tpu_torch.ops import pairhmm_cuda as pc
+    from lorikeet_tpu_torch.ops.pairhmm import (
+        F32_SUSPECT_LOG10, pack_pairhmm_batch,
+    )
+
+    a = pack_pairhmm_batch(pairs)
+    args = (a["haps"], a["hap_lens"], a["reads"], a["read_lens"], a["quals"],
+            a["ins_quals"], a["del_quals"], a["gcps"])
+    launches = pc.FLAT_LAUNCHES
+    got = pc.pairhmm_forward_flat(*args, device=dev).astype(np.float64)
+    check(pc.FLAT_LAUNCHES == launches + 1,
+          f"{name}: flat kernel launch not counted")
+    check(got.shape == (len(pairs),) and np.all(np.isfinite(got)),
+          f"{name}: flat kernel output shape or non-finite values")
+    t = pc.to_tensors(pc.pack_flat_inputs(*args), dev)
+    plain = pc.pairhmm_flat_torch(t).cpu().numpy().astype(np.float64)
+    grouped = pc.pairhmm_forward_grouped(pairs, dev)
+    keep = plain > F32_SUSPECT_LOG10
+    check(keep.any(), f"{name}: no rows above the escalation bound")
+    err = float(np.abs(got[keep] - plain[keep]).max())
+    check(err <= KERNEL_TOL,
+          f"{name}: flat kernel vs plain {err} > {KERNEL_TOL}")
+    err_grouped = float(np.abs(got[keep] - grouped[keep]).max())
+    check(err_grouped <= KERNEL_TOL,
+          f"{name}: flat vs grouped kernel {err_grouped} > {KERNEL_TOL}")
+    cells = int((a["read_lens"].astype(np.int64) * a["hap_lens"]).sum())
+    out = {"pairs": len(pairs), "rpad": int(t["quals"].shape[1]),
+           "hpad": int(t["haps"].shape[1]), "cells": cells,
+           "max_abs_err_vs_plain": err, "max_abs_err_vs_grouped": err_grouped,
+           "escalated_rows": int((~keep).sum()),
+           **bound(PAIRHMM_OPS_PER_CELL * cells, PEAK_F32_OPS_S,
+                   tensor_bytes(*t.values()) + 4 * len(pairs))}
+    if timed:
+        ms = cuda_median_ms(lambda: pc.pairhmm_flat_cuda(t))
+        plain_ms = cuda_median_ms(lambda: pc.pairhmm_flat_torch(t), runs=5)
+        t0 = time.perf_counter()
+        pc.pairhmm_forward_flat(*args, device=dev)
+        forward_ms = (time.perf_counter() - t0) * 1e3
+        out.update(ms=ms, plain_ms=plain_ms, forward_ms=forward_ms,
+                   gcups=cells / (ms * 1e-3) / 1e9,
+                   plain_gcups=cells / (plain_ms * 1e-3) / 1e9)
+    emit("flat_kernel", batch=name, **out)
+    return out
+
+
+def region_batch_phase(pairs, dev) -> dict:
+    """region_batch_step at world size 1 on the main path's largest batch,
+    one row per pair, with sample ids and depths from the seed."""
+    import numpy as np
+
+    from lorikeet_tpu_torch.ops import pairhmm_cuda as pc
+    from lorikeet_tpu_torch.ops.pairhmm import (
+        pack_pairhmm_batch, pairhmm_forward_checked, pairhmm_forward_f64,
+    )
+    from lorikeet_tpu_torch.parallel.hosts import group_rank_world
+    from lorikeet_tpu_torch.parallel.sharding import region_batch_step
+
+    n_samples, n_pos = 8, 64
+    rng = np.random.default_rng(1)
+    sample_ids = rng.integers(0, n_samples, len(pairs)).astype(np.int32)
+    depths = rng.random((len(pairs), n_pos), np.float32)
+    a = pack_pairhmm_batch(pairs)
+    launches = pc.FLAT_LAUNCHES
+    t0 = time.perf_counter()
+    lk, total = region_batch_step(None, n_samples=n_samples, device=dev)(
+        a["haps"], a["hap_lens"], a["reads"], a["read_lens"], a["quals"],
+        a["ins_quals"], a["del_quals"], a["gcps"], sample_ids, depths)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    check(pc.FLAT_LAUNCHES == launches + 1,
+          "region_batch: the step did not launch the flat kernel once")
+    check(lk.shape == (len(pairs),) and total.shape == (n_samples, n_pos),
+          f"region_batch: shapes {lk.shape}, {total.shape}")
+    exact = pairhmm_forward_f64(pairs)
+    err64 = float(np.abs(pairhmm_forward_checked(lk, pairs) - exact).max())
+    check(err64 <= EXACT_TOL, f"region_batch: lk vs f64 {err64} > {EXACT_TOL}")
+    want = np.zeros((n_samples, n_pos), np.float64)
+    np.add.at(want, sample_ids, depths.astype(np.float64))
+    # f32 sums of ~1,500 values in [0, 1) per cell, in the order the card's
+    # atomics take them
+    err_total = float(np.abs(total - want).max())
+    check(err_total <= 1e-2, f"region_batch: depth totals off by {err_total}")
+    out = {"world_size": group_rank_world()[1], "pairs": len(pairs),
+           "n_samples": n_samples, "positions": n_pos,
+           "max_abs_err_vs_f64": err64, "max_abs_err_total": err_total,
+           "step_ms": step_ms}
+    emit("region_batch", **out)
+    return out
+
+
+def activity_phase(span, dev) -> dict:
+    """The device activity chain on one real span of the `call` run (the
+    arguments processing._call_span passed) against the host chain."""
+    import numpy as np
+    import torch
+
+    from lorikeet_tpu_torch.models.activity import (
+        active_probabilities, band_pass_smooth,
+    )
+    from lorikeet_tpu_torch.parallel.pipeline import smoothed_activity_device
+
+    args, kwargs = span
+    kwargs = {**kwargs, "device": dev}
+    gls, hq_mean, ploidy, het, het_std, conf = args
+    prop = kwargs["max_prob_propagation"]
+    got = smoothed_activity_device(*args, **kwargs)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host = band_pass_smooth(
+            active_probabilities(gls, ploidy, het, het_std, conf), hq_mean,
+            max_prob_propagation=prop)
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(got.shape == host.shape == (gls.shape[1],)
+          and np.all(np.isfinite(got)), "activity: shape or non-finite")
+    err = float(np.abs(got - host).max())
+    check(err <= ACTIVITY_TOL, f"activity: device vs host {err}")
+    check(host.max() > 0.0, "activity: the span has no active position")
+    ms = cuda_median_ms(lambda: smoothed_activity_device(*args, **kwargs),
+                        runs=5)
+    out = {"samples": int(gls.shape[0]), "positions": int(gls.shape[1]),
+           "active_positions": int((host > 0).sum()),
+           "max_abs_err_vs_host": err, "ms": ms,
+           "host_ms": sorted(times)[1]}
+    emit("activity", **out)
+    return out
+
+
+def dryrun_phase(dev) -> dict:
+    from lorikeet_tpu_torch.ops import pairhmm_cuda as pc
+    from lorikeet_tpu_torch.parallel.dryrun import dryrun
+
+    flat, grouped = pc.FLAT_LAUNCHES, pc.LAUNCHES
+    t0 = time.perf_counter()
+    dryrun(1, device=dev)
+    out = {"world_size": 1, "seconds": time.perf_counter() - t0,
+           "flat_launches": pc.FLAT_LAUNCHES - flat,
+           "grouped_launches": pc.LAUNCHES - grouped}
+    check(out["flat_launches"] > 0 and out["grouped_launches"] > 0,
+          f"dryrun: launches {out}")
+    emit("dryrun", **out)
     return out
 
 
@@ -240,7 +455,7 @@ def sw_strategy_batches(rng, n=64):
     than their haplotype."""
     import numpy as np
 
-    from lorikeet_tpu.ops import smith_waterman as swm
+    from lorikeet_tpu_torch.ops import smith_waterman as swm
     bases = np.frombuffer(b"ACGT", np.uint8)
     params = (swm.ORIGINAL_DEFAULT, swm.STANDARD_NGS, swm.NEW_SW_PARAMETERS,
               swm.ALIGNMENT_TO_BEST_HAPLOTYPE_SW_PARAMETERS)
@@ -281,7 +496,7 @@ def sw_phase(name, pairs, params, strategy, dev, timed: bool,
     events), the plain version and the native aligner."""
     import torch
 
-    from lorikeet_tpu.ops.smith_waterman import align
+    from lorikeet_tpu_torch.ops.smith_waterman import align
     from lorikeet_tpu_torch.ops import sw_cuda as sc
 
     counts = dict(sc.SW_COUNTS)
@@ -320,9 +535,14 @@ def sw_phase(name, pairs, params, strategy, dev, timed: bool,
     check(vs_native == 0, f"{name}: kernel != native align on {vs_native} "
           "pairs")
     cells = sum(len(r) * len(a) for r, a in batched)
+    # in: the sequences and the table; out: the CIGAR codes and the
+    # (length, offset) table.  The backtrack slab is the kernel's own.
+    moved = tensor_bytes(t["seqs"], t["meta"]) + 8 * len(batched) \
+        + 4 * sum(len(c) for c, _ in got)
     out.update(batched=len(batched), cells=cells, rows_max=t["rows_max"],
                mismatches=vs_plain + vs_native,
-               plain_once_ms=plain_once_ms)
+               plain_once_ms=plain_once_ms,
+               **bound(SW_OPS_PER_CELL * cells, PEAK_I32_OPS_S, moved))
     if timed:
         ms = cuda_median_ms(lambda: sc.sw_kernel_launch(t, params, strategy))
         plain_ms = cuda_median_ms(
@@ -339,7 +559,7 @@ def sw_phase(name, pairs, params, strategy, dev, timed: bool,
 
 
 def sw_kernel_phase(rng, dev, timed=True) -> list:
-    from lorikeet_tpu.ops.smith_waterman import (
+    from lorikeet_tpu_torch.ops.smith_waterman import (
         ALIGNMENT_TO_BEST_HAPLOTYPE_SW_PARAMETERS, OverhangStrategy,
     )
     best, soft = (ALIGNMENT_TO_BEST_HAPLOTYPE_SW_PARAMETERS,
@@ -368,22 +588,32 @@ def read_sites(vcf):
     return sites
 
 
-def call_leg(label, fasta, bams, outdir, extra):
-    """One `call` run through the CLI; returns its counters."""
-    from lorikeet_tpu.utils import progress
+def call_leg(label, fasta, bams, outdir, extra, env=None):
+    """One `call` run through the CLI, under the environment variables of
+    ``env``; returns its counters."""
     from lorikeet_tpu_torch import cli
     from lorikeet_tpu_torch.calling import engine
     from lorikeet_tpu_torch.calling import likelihoods as lk
     from lorikeet_tpu_torch.ops import pairhmm as ph
     from lorikeet_tpu_torch.ops import pairhmm_cuda as pc
     from lorikeet_tpu_torch.ops import sw_cuda as sc
+    from lorikeet_tpu_torch.parallel import pipeline
+    from lorikeet_tpu_torch.utils import progress
 
     work = {"regions": 0, "batches": 0, "pairs": 0, "cells": 0}
     largest = {"cells": -1, "pairs": None}
     sw_work = {"batches": 0, "device_batches": 0}
     sw_largest = {"device": 0, "pairs": None}
+    activity = {"spans": 0, "positions": -1, "span": None}
     compute = engine.compute_works_likelihoods
     align_batch = sc.align_batch_cuda
+    smooth = pipeline.smoothed_activity_device
+
+    def activity_counted(*args, **kwargs):
+        activity["spans"] += 1
+        if args[0].shape[1] > activity["positions"]:
+            activity.update(positions=args[0].shape[1], span=(args, kwargs))
+        return smooth(*args, **kwargs)
 
     def sw_counted(pairs, *args, **kwargs):
         before = sc.SW_COUNTS["device"]
@@ -408,6 +638,10 @@ def call_leg(label, fasta, bams, outdir, extra):
 
     engine.compute_works_likelihoods = counted
     sc.align_batch_cuda = sw_counted
+    pipeline.smoothed_activity_device = activity_counted
+    env = dict(env or {})
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     progress.GLOBAL_STAGES = {}
     lk.DISPATCH_COUNTS.update(device=0, host=0)
     ph.ESCALATIONS.update(checked=0, escalated=0)
@@ -423,6 +657,12 @@ def call_leg(label, fasta, bams, outdir, extra):
     finally:
         engine.compute_works_likelihoods = compute
         sc.align_batch_cuda = align_batch
+        pipeline.smoothed_activity_device = smooth
+        for key, old in saved_env.items():
+            if old is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = old
     wall = time.perf_counter() - t0
     launches = pc.LAUNCHES
     sw_launches = sc.SW_LAUNCHES
@@ -445,17 +685,17 @@ def call_leg(label, fasta, bams, outdir, extra):
            "sw_counts": dict(sc.SW_COUNTS), "sw_launches": sw_launches,
            "sw_batches": sw_work["batches"],
            "sw_device_batches": sw_work["device_batches"],
-           "vcf": vcf}
-    return leg, largest["pairs"], sw_largest["pairs"]
+           "spans": work["batches"], "activity_spans": activity["spans"],
+           "env": env, "vcf": vcf}
+    return leg, largest["pairs"], sw_largest["pairs"], activity["span"]
 
 
 def call_phase(root):
-    import bench_e2e
-    from lorikeet_tpu.io.vcf import read_vcf
+    from lorikeet_tpu_torch.io.vcf import read_vcf
+    from lorikeet_tpu_torch.testkit.dataset import recall, simulate_dataset
 
     t0 = time.perf_counter()
-    fasta, bams, truth = bench_e2e.simulate_dataset(
-        root, GENOME_KBP, 2, 30.0, seed=0, cache=True)
+    fasta, bams, truth = simulate_dataset(root, GENOME_KBP, 2, 30.0, seed=0)
     emit("simulate", kbp=GENOME_KBP, samples=2, coverage=30,
          variants=len(truth), seconds=time.perf_counter() - t0)
     # a short f64 run builds the host libraries (g++, at first use), so
@@ -463,15 +703,23 @@ def call_phase(root):
     call_leg("warmup", fasta, bams, os.path.join(root, "warmup"),
              ["--force-cpu", "--limiting-interval", "0-30000"])
     legs = {}
-    batch = sw_batch = None
+    batch = sw_batch = span = None
     for run, label in enumerate(LEG_ORDER):
-        leg, largest, sw_largest = call_leg(
+        leg, largest, sw_largest, leg_span = call_leg(
             label, fasta, bams, os.path.join(root, f"{label}{run}"),
-            LEG_FLAGS[label])
+            LEG_FLAGS[label], LEG_ENV.get(label))
         calls, _, _ = read_vcf(leg["vcf"])
         leg["calls"] = len(calls)
-        leg["recall"] = bench_e2e.recall(calls, truth)
+        leg["recall"] = recall(calls, truth)
         emit("call", run=run, **leg)
+        if label in LEG_ENV:
+            check(leg["activity_spans"] == leg["spans"] > 0,
+                  f"{label} leg: {leg['activity_spans']} of {leg['spans']} "
+                  "spans took the device activity chain")
+            span = leg_span
+        else:
+            check(leg["activity_spans"] == 0,
+                  f"{label} leg ran the device activity chain")
         on_card = label.startswith("gpu")
         sw_on_card = "--pallas-sw" in LEG_FLAGS[label]
         if on_card:
@@ -505,18 +753,26 @@ def call_phase(root):
     check(dq <= QUAL_TOL, f"QUAL differs by {dq} > {QUAL_TOL}")
     gpu = legs["gpu"]
     check(gpu["recall"] >= MIN_RECALL, f"recall {gpu['recall']}")
+    sa = read_sites(legs["gpu_act"]["vcf"])
+    check([k for k, _ in sa] == [k for k, _ in sg], "the device-activity "
+          "leg and the default card leg call different sites/alleles/"
+          "genotypes")
+    dq_act = max((abs(a - b) for (_, a), (_, b) in zip(sa, sg)), default=0.0)
+    check(dq_act <= QUAL_TOL, f"device-activity leg: QUAL differs by "
+          f"{dq_act} > {QUAL_TOL}")
     emit("compare", sites=len(sg), max_qual_diff=dq, recall=gpu["recall"],
+         max_qual_diff_device_activity=dq_act,
          vcfs_identical=[list(p) for p in SAME_VCF],
          **{f"{k}_wall_s": leg["wall_s"] for k, leg in legs.items()},
          **{f"{k}_pairhmm_s": leg["pairhmm_s"] for k, leg in legs.items()})
-    return gpu, legs["gpu_sw"], batch, sw_batch, (fasta, bams, sg)
+    return gpu, legs["gpu_sw"], batch, sw_batch, span, (fasta, bams, sg)
 
 
 def sw_main_path_phase(pairs, dev) -> dict:
     """The largest realignment SW batch of the first card leg, replayed at
     the main path's own settings: kernel, plain version and native aligner
     agree, each timed."""
-    from lorikeet_tpu.ops.smith_waterman import (
+    from lorikeet_tpu_torch.ops.smith_waterman import (
         ALIGNMENT_TO_BEST_HAPLOTYPE_SW_PARAMETERS, OverhangStrategy,
     )
     return sw_phase("sw_main_path", pairs,
@@ -531,16 +787,10 @@ def trace_phase(root, fasta, bams, sites, label):
     profiler's hooks can slow later launches; the timed legs run
     untraced."""
     prof = os.path.join(root, f"prof_{label}")
-    try:
-        traced, _, _ = call_leg(f"{label}_traced", fasta, bams,
-                                os.path.join(root, f"traced_{label}"),
-                                [*LEG_FLAGS[label], "--profile-dir", prof])
-        busy = device_busy(os.path.join(prof, "trace.json"),
-                           traced["wall_s"])
-    except Exception as exc:  # noqa: BLE001 — the trace is a measurement
-        # only; the checked legs already ran the same path untraced
-        emit("trace", leg=label, error=repr(exc))
-        return
+    traced, *_ = call_leg(f"{label}_traced", fasta, bams,
+                          os.path.join(root, f"traced_{label}"),
+                          [*LEG_FLAGS[label], "--profile-dir", prof])
+    busy = device_busy(os.path.join(prof, "trace.json"), traced["wall_s"])
     check(read_sites(traced["vcf"]) == sites, f"traced {label} leg calls "
           "differ")
     emit("trace", leg=label, **busy)
@@ -596,36 +846,66 @@ def main() -> int:
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    checks = [kernel_phase("region", region_pairs(rng), dev, timed=True),
-              kernel_phase("long", long_pairs(rng), dev, timed=False)]
+    region, long_ = region_pairs(rng), long_pairs(rng)
+    checks = [kernel_phase("region", region, dev, timed=True),
+              kernel_phase("long", long_, dev, timed=False)]
+    flat_checks = [flat_kernel_phase("region", region, dev, timed=True),
+                   flat_kernel_phase("long", long_, dev, timed=False)]
     sw_checks = sw_kernel_phase(rng, dev)
 
+    from lorikeet_tpu_torch.ops import pairhmm_cuda as pc
     with tempfile.TemporaryDirectory() as root:
-        gpu, gpu_sw, batch, sw_batch, dataset = call_phase(root)
+        gpu, gpu_sw, batch, sw_batch, span, dataset = call_phase(root)
         # the main path's largest batches, replayed after the counted run:
         # each kernel at the shapes the main path gives it
         main_batch = kernel_phase("main_path", batch, dev, timed=True)
+        flat_main = flat_kernel_phase("main_path", batch, dev, timed=True)
         sw_main = sw_main_path_phase(sw_batch, dev)
+        # the flat kernel's own path, counted from 0: the region-batch step
+        # on the main path's batch, then the dry run's three steps
+        pc.FLAT_LAUNCHES = 0
+        region_batch_phase(batch, dev)
+        activity_phase(span, dev)
+        dryrun_phase(dev)
+        flat_launches = pc.FLAT_LAUNCHES
+        check(flat_launches > 0, "the flat kernel's path launched no kernel")
         for label in ("gpu", "gpu_sw"):
             trace_phase(root, *dataset, label)
     checks.append(main_batch)
+    flat_checks.append(flat_main)
     sw_checks.append(sw_main)
 
-    check("jax" not in sys.modules, "jax was imported")
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "lorikeet_tpu", "bench_e2e"))
+    check(not foreign, f"modules outside the port were imported: {foreign}")
+
+    def times(c):
+        # no single PyTorch call computes a pair-HMM forward or an
+        # affine-gap Smith-Waterman with traceback: no library time
+        return {"ms": c["ms"], "plain_ms": c["plain_ms"],
+                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                "library_ms": None}
+
     print(json.dumps({"kernels": [{
         "name": "pairhmm_grouped", "route": "cuda",
         "source": "lorikeet_tpu_torch/csrc/pairhmm.cu",
         "replaces": "lorikeet_tpu/ops/pairhmm_pallas.py:461",
         "launches": gpu["launches"],
         "max_abs_err": max(c["max_abs_err_vs_plain"] for c in checks),
-        "ms": main_batch["ms"], "plain_ms": main_batch["plain_ms"]}, {
+        **times(main_batch)}, {
         "name": "sw_align", "route": "cuda",
         "source": "lorikeet_tpu_torch/csrc/sw.cu",
         "replaces": "lorikeet_tpu/ops/sw_pallas.py:59",
         "launches": gpu_sw["sw_launches"],
         # exact: 0.0 when every (CIGAR, offset) matched, as checked above
         "max_abs_err": float(max(c.get("mismatches", 0) for c in sw_checks)),
-        "ms": sw_main["ms"], "plain_ms": sw_main["plain_ms"]}]}),
+        **times(sw_main)}, {
+        "name": "pairhmm_flat", "route": "cuda",
+        "source": "lorikeet_tpu_torch/csrc/pairhmm.cu",
+        "replaces": "lorikeet_tpu/ops/pairhmm_pallas.py:91",
+        "launches": flat_launches,
+        "max_abs_err": max(c["max_abs_err_vs_plain"] for c in flat_checks),
+        **times(flat_main)}]}),
         flush=True)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

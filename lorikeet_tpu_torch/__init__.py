@@ -1,9 +1,13 @@
 """lorikeet_tpu_torch: the PyTorch/CUDA port of lorikeet_tpu.
 
-The port owns only the modules on the jax import chain of the `call` path
-(likelihoods, engine, processing, cli and their helpers) and imports the
-jax-free host modules (BAM/FASTA/VCF I/O, assembly, native C++ kernels,
-models, strain analysis) from ``lorikeet_tpu`` unchanged.  The pair-HMM
-forward runs as a hand-written CUDA kernel (``csrc/pairhmm.cu``) built at
-first use; nothing here imports jax.
+A package of its own: it imports ``torch``, never ``jax``, and nothing of
+``lorikeet_tpu``.  The host modules (BAM/FASTA/VCF I/O, assembly, the native
+C++ components, models, strain analysis, the simulator) are its own copies,
+numpy and ctypes code with the same names and results as the JAX package's.
+The device kernels are hand-written CUDA (``csrc/pairhmm.cu``: grouped and
+flat pair-HMM forward; ``csrc/sw.cu``: Smith-Waterman with traceback), built
+at first use into ``build/``; the activity chain and the sharded steps
+(``parallel/``) are torch ops over ``torch.distributed``.
 """
+
+__version__ = "0.1.0"

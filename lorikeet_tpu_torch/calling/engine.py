@@ -20,17 +20,17 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from lorikeet_tpu.assembly.graph import assemble_region
-from lorikeet_tpu.calling.events import (
+from lorikeet_tpu_torch.assembly.graph import assemble_region
+from lorikeet_tpu_torch.calling.events import (
     build_event_map, create_allele_mapper, events_at_locus, merge_events,
 )
 from lorikeet_tpu_torch.calling.likelihoods import AlleleLikelihoods, compute_read_likelihoods
-from lorikeet_tpu.models.af_calc import AlleleFrequencyCalculator
-from lorikeet_tpu.models.genotype_alleles import (
+from lorikeet_tpu_torch.models.af_calc import AlleleFrequencyCalculator
+from lorikeet_tpu_torch.models.genotype_alleles import (
     genotype_count_matrix, genotype_likelihoods_from_read_matrix,
 )
-from lorikeet_tpu.models.variants import Allele, Genotype, VariantContext
-from lorikeet_tpu.utils.math import log10_one_minus_pow10
+from lorikeet_tpu_torch.models.variants import Allele, Genotype, VariantContext
+from lorikeet_tpu_torch.utils.math import log10_one_minus_pow10
 
 ALLELE_INFORMATIVE_READS_OVERLAP_MARGIN = 2
 MAX_QD_BEFORE_FIXING = 45.0
@@ -268,7 +268,7 @@ def _informative_best_alleles(mat: np.ndarray):
 def _gq_log10_from_posteriors(best: int, log10_posteriors) -> float:
     """log10 P(genotype != best) from normalized log10 posteriors
     (variant_context.rs:524-571 get_gq_log10_from_posteriors)."""
-    from lorikeet_tpu.utils.math import log10_sum_log10
+    from lorikeet_tpu_torch.utils.math import log10_sum_log10
     p = np.asarray(log10_posteriors, float)
     n = len(p)
     if n <= 1:
@@ -294,7 +294,7 @@ _LN10 = np.log(10.0)
 def _read_offset_at_ref_trim(cigar, start: int) -> int:
     """Read-base offset where `trim_cigar_by_reference(cigar, start, ...)`
     begins consuming, mirroring its element-boundary rules exactly."""
-    from lorikeet_tpu.utils.cigar import CONSUMES_READ, CONSUMES_REF
+    from lorikeet_tpu_torch.utils.cigar import CONSUMES_READ, CONSUMES_REF
     element_end = 0
     read = 0
     for op, n in cigar:
@@ -321,7 +321,7 @@ def trim_haplotypes_to_span(haplotypes, pad_lo, pad_hi, window_start):
     caller then keeps the untrimmed region."""
     from dataclasses import replace
 
-    from lorikeet_tpu.utils.cigar import (read_length, reference_length,
+    from lorikeet_tpu_torch.utils.cigar import (read_length, reference_length,
                                           trim_cigar_by_reference)
 
     out = []
@@ -377,7 +377,7 @@ def compute_works_likelihoods(engine: "HaplotypeCallerEngine",
     import time as _time
 
     from lorikeet_tpu_torch.calling.likelihoods import compute_pair_likelihoods
-    from lorikeet_tpu.utils import progress as _prog
+    from lorikeet_tpu_torch.utils import progress as _prog
     all_pairs = [p for w in works for p in w.pairs]
     t0 = _time.perf_counter()
     out = compute_pair_likelihoods(all_pairs, engine.cfg.use_cuda)
@@ -541,7 +541,7 @@ class GenotypingEngine:
             if gp is None:
                 continue
             gp = np.asarray(gp, float)
-            from lorikeet_tpu.utils.math import log10_sum_log10
+            from lorikeet_tpu_torch.utils.math import log10_sum_log10
             # the reference clamps in PHRED space (extract_p_no_alt_with
             # _posteriors: reducer = max(0, phred_sum)); for max-normalized
             # posteriors phred_sum <= 0, so the log10 mirror is min(0, sum)
@@ -555,7 +555,7 @@ class GenotypingEngine:
         heterozygosities (genotype_prior_calculator.rs make + assuming_hw;
         resolve_genotype_prior_calculator at
         haplotype_caller_genotyping_engine.rs:284,496)."""
-        from lorikeet_tpu.models.genotype_priors import GenotypePriorCalculator
+        from lorikeet_tpu_torch.models.genotype_priors import GenotypePriorCalculator
         gpc = getattr(self, "_gpc", None)
         if gpc is None:
             gpc = GenotypePriorCalculator.make(self.cfg.snp_heterozygosity,
@@ -684,7 +684,7 @@ class HaplotypeCallerEngine:
             # finalize reads: soft-clip handling, tail/adaptor/region
             # clipping, overlapping mate-pair qual correction
             # (finalize_regions, assembly_based_caller_utils.rs:97)
-            from lorikeet_tpu.calling.clipping import finalize_region_reads
+            from lorikeet_tpu_torch.calling.clipping import finalize_region_reads
             reads_by_sample = finalize_region_reads(
                 reads_by_sample, window_start,
                 window_start + len(ref_window) - 1,
@@ -732,7 +732,7 @@ class HaplotypeCallerEngine:
                                       self.cfg.max_mnp_distance)
                       for h in haplotypes]
         if given_alleles:
-            from lorikeet_tpu.calling.given_alleles import add_given_haplotypes
+            from lorikeet_tpu_torch.calling.given_alleles import add_given_haplotypes
             add_given_haplotypes(haplotypes, hap_events, ref_window,
                                  window_start, given_alleles,
                                  self.cfg.max_mnp_distance)
@@ -754,7 +754,7 @@ class HaplotypeCallerEngine:
         # per-variant padding: SNPs get snp padding; indels get indel
         # padding, or str padding + the longest tandem-repeat run when the
         # site is repeat-decomposable (assembly_region_trimmer.rs:96-117)
-        from lorikeet_tpu.utils.repeats import vc_tandem_repeat_units
+        from lorikeet_tpu_torch.utils.repeats import vc_tandem_repeat_units
         ref_bytes = np.asarray(ref_window, np.uint8).tobytes()
 
         def _padding(vc):
@@ -796,7 +796,7 @@ class HaplotypeCallerEngine:
                 hap_events = [build_event_map(h, ref_window, window_start,
                                               self.cfg.max_mnp_distance)
                               for h in haplotypes]
-                from lorikeet_tpu.calling.clipping import hard_clip_to_region
+                from lorikeet_tpu_torch.calling.clipping import hard_clip_to_region
                 reads_by_sample = {
                     s: [c for c in (hard_clip_to_region(r, pad_lo, pad_hi)
                                     for r in reads)
@@ -874,7 +874,7 @@ class HaplotypeCallerEngine:
             # (remove_alt_alleles_if_too_many_genotypes,
             #  allele_subsetting_utils.rs:30-160)
             if merged.n_alleles - 1 > self.cfg.max_alt_alleles:
-                from lorikeet_tpu.models.allele_subsetting import subset_vc_alleles
+                from lorikeet_tpu_torch.models.allele_subsetting import subset_vc_alleles
                 subset_vc_alleles(merged, self.cfg.ploidy,
                                   self.cfg.max_alt_alleles)
             call = self.genotyping.calculate_genotypes(merged,
@@ -888,7 +888,7 @@ class HaplotypeCallerEngine:
         #  cli.rs do-not-run-physical-phasing)
         if self.cfg.do_not_run_physical_phasing:
             return calls
-        from lorikeet_tpu.calling.phasing import phase_calls
+        from lorikeet_tpu_torch.calling.phasing import phase_calls
         return phase_calls(calls, hap_events)
 
     def _genotypes_for_event(self, allele_lks: AlleleLikelihoods,
@@ -958,7 +958,7 @@ class HaplotypeCallerEngine:
         # the site :347 via get_read_base_quality_at_reference_coordinate).
         # The reference's MQ header says "RMS" but the statistic it stores
         # is this median — the description string is wrong upstream.
-        from lorikeet_tpu.utils.cigar import read_offset_at
+        from lorikeet_tpu_torch.utils.cigar import read_offset_at
         quals_by_allele = {}
         mapqs_by_allele = {}
         for s in allele_lks.samples:

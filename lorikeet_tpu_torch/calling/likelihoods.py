@@ -104,7 +104,7 @@ def _run_end(m: np.ndarray) -> np.ndarray:
 
 def repeat_lengths_vector(bases: np.ndarray) -> np.ndarray:
     """Tandem-repeat length at every offset (native C++ when available)."""
-    from lorikeet_tpu.ops.repeats_native import repeat_lengths_native
+    from lorikeet_tpu_torch.ops.repeats_native import repeat_lengths_native
     out = repeat_lengths_native(bases, MAX_STR_UNIT_LENGTH, MAX_REPEAT_LENGTH)
     if out is None:
         out = _repeat_lengths_vector_np(bases)
@@ -304,7 +304,7 @@ def prepare_reads_for_hmm_batch(recs: list, disable_cap_to_mapq: bool = False,
     cache = _pcr_error_cache(pcr_rate_factor) \
         if pcr_rate_factor is not None else None
     if cache is not None and total:
-        from lorikeet_tpu.ops.repeats_native import repeat_lengths_batch_native
+        from lorikeet_tpu_torch.ops.repeats_native import repeat_lengths_batch_native
         concat = np.concatenate([r.seq for r in recs])
         rls = repeat_lengths_batch_native(
             concat, offs, MAX_STR_UNIT_LENGTH, MAX_REPEAT_LENGTH)
@@ -553,17 +553,30 @@ DISPATCH_COUNTS = {"device": 0, "host": 0}
 PAIRHMM_DEVICE = "cuda"
 
 
+def resolve_use_cuda(use_cuda: bool | None) -> bool:
+    """The one rule for where the pair-HMM runs: ``None`` means the card,
+    as ``True`` does, and only ``False`` selects the f64 host kernel.  The
+    card is required (RuntimeError without one) unless PAIRHMM_DEVICE was
+    moved to the CPU."""
+    if use_cuda is None:
+        use_cuda = True
+    if use_cuda:
+        import torch
+        if torch.device(PAIRHMM_DEVICE).type == "cuda":
+            from lorikeet_tpu_torch.device import require_cuda
+            require_cuda()
+    return bool(use_cuda)
+
+
 def compute_pair_likelihoods(pairs: list, use_cuda: bool = None) -> np.ndarray:
-    """log10 likelihood per packed pair.  With ``use_cuda`` every batch runs
-    as one grouped kernel launch on PAIRHMM_DEVICE (raising when that
-    device is missing) and is then checked by pairhmm_forward_checked;
-    otherwise the exact f64 native host kernel computes it.  ``None``
-    selects the device when a CUDA card is present."""
+    """log10 likelihood per packed pair.  With ``use_cuda`` (or ``None``,
+    which means the same) every batch runs as one grouped kernel launch on
+    PAIRHMM_DEVICE (raising when that device is missing) and is then
+    checked by pairhmm_forward_checked; with ``False`` the exact f64 native
+    host kernel computes it."""
     if not pairs:
         return np.zeros(0)
-    if use_cuda is None:
-        import torch
-        use_cuda = torch.cuda.is_available()
+    use_cuda = resolve_use_cuda(use_cuda)
     DISPATCH_COUNTS["device" if use_cuda else "host"] += 1
     if use_cuda:
         from lorikeet_tpu_torch.ops.pairhmm_cuda import pairhmm_forward_grouped

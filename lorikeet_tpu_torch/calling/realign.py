@@ -4,11 +4,9 @@ Counterpart of lorikeet_tpu/calling/realign.py
 (assembly_based_caller_utils.rs:208-246 realign_reads_to_their_best_haplotype):
 each read is Smith-Waterman-aligned to the haplotype with its best
 likelihood and the alignment is composed through the haplotype-vs-reference
-CIGAR.  The CIGAR composition helpers are jax-free and imported from the
-JAX package; this module owns the realignment loop, whose best-haplotype
-search comes from the port's likelihoods.  The SW runs on the native host
-aligner, or batched on the CUDA kernel (ops/sw_cuda.py) with
-``use_cuda_sw``, bit-identical either way.
+CIGAR; the best-haplotype search comes from the port's likelihoods.  The
+SW runs on the native host aligner, or batched on the CUDA kernel
+(ops/sw_cuda.py) with ``use_cuda_sw``, bit-identical either way.
 """
 from __future__ import annotations
 
@@ -16,11 +14,90 @@ import dataclasses
 
 import numpy as np
 
-from lorikeet_tpu.calling.realign import _padded_hap_cigar, compose_to_reference
-from lorikeet_tpu.ops.smith_waterman import (
+from lorikeet_tpu_torch.ops.smith_waterman import (
     ALIGNMENT_TO_BEST_HAPLOTYPE_SW_PARAMETERS, OverhangStrategy, align,
 )
 from lorikeet_tpu_torch.calling.likelihoods import search_best_alleles
+from lorikeet_tpu_torch.utils.cigar import CigarBuilder
+
+
+def _padded_hap_cigar(hap_cigar: list) -> list:
+    """Hap-vs-ref cigar right-padded with 1000M (deletions dropped), the
+    read-invariant prefix of create_read_aligned_to_ref
+    (alignment_utils.rs:56-60) — shared by compose_to_reference's fallback
+    and the per-haplotype cache in realign_reads_to_best_haplotype."""
+    pb = CigarBuilder(remove_deletions=True)
+    for op, n in hap_cigar:
+        pb.add(op, n)
+    pb.add("M", 1000)
+    return pb.make()
+
+
+def compose_to_reference(read_vs_hap_cigar: list, read_offset_in_hap: int,
+                         hap_cigar: list, hap_ref_start: int,
+                         ref_bases: np.ndarray = None,
+                         read_bases: np.ndarray = None,
+                         padded_hap_cigar: list = None):
+    """(new_ref_pos, read-vs-ref cigar) from a read-vs-haplotype alignment.
+
+    Faithful to create_read_aligned_to_ref (alignment_utils.rs:40-165):
+    the hap-vs-ref cigar is right-padded with match so reads running off
+    the haplotype stay aligned, trimmed to start at the read's offset,
+    composed via apply_cigar_to_cigar (read-vs-hap soft clips become
+    insertions), and — when ``ref_bases``/``read_bases`` are given —
+    left-aligned with the read position adjusted for any leading deletion
+    the alignment sheds."""
+    from lorikeet_tpu_torch.utils.cigar import (
+        CigarBuilder, CigarBuilderError, apply_cigar_to_cigar,
+        left_align_indels, read_length, read_start_on_reference_haplotype,
+        trim_cigar_by_bases,
+    )
+    from lorikeet_tpu_torch.utils.cigar import read_start_on_reference_haplotype
+
+    # fast path: a pure-match read-vs-hap alignment whose haplotype span
+    # sits inside ONE match run of the hap-vs-ref cigar composes to a
+    # single M — no CIGAR construction, no trim/apply, and left-alignment is a no-op
+    # (no indels to shift).  The general path below is the spec; the fuzz
+    # test pins equality.
+    if (padded_hap_cigar is not None and len(read_vs_hap_cigar) == 1
+            and read_vs_hap_cigar[0][0] == "M"):
+        n = read_vs_hap_cigar[0][1]
+        q = 0
+        for hop, hn in padded_hap_cigar:
+            if hop in "MIS=X":                 # consumes haplotype bases
+                if q <= read_offset_in_hap and \
+                        read_offset_in_hap + n <= q + hn:
+                    if hop != "M":
+                        break                   # inside an insertion: general
+                    return (hap_ref_start + read_start_on_reference_haplotype(
+                        padded_hap_cigar, read_offset_in_hap),
+                        [("M", n)])
+                q += hn
+                if q > read_offset_in_hap:
+                    break                       # span crosses run boundary
+    try:
+        sw_builder = CigarBuilder(remove_deletions=True)
+        for op, n in read_vs_hap_cigar:
+            sw_builder.add(op, n)
+        sw_cigar = sw_builder.make()
+        padded = (padded_hap_cigar if padded_hap_cigar is not None
+                  else _padded_hap_cigar(hap_cigar))
+        start_on_ref_hap = read_start_on_reference_haplotype(
+            padded, read_offset_in_hap)
+        new_pos = hap_ref_start + start_on_ref_hap
+        hap_to_ref, _, _ = trim_cigar_by_bases(
+            padded, read_offset_in_hap, read_length(padded) - 1)
+        composed = apply_cigar_to_cigar(sw_cigar, hap_to_ref)
+        # left-alignment only ever moves indels; an indel-free cigar is a
+        # guaranteed no-op (and it is the common case)
+        if ref_bases is not None and read_bases is not None \
+                and any(op in "ID" for op, _ in composed):
+            composed, lead_removed, _ = left_align_indels(
+                composed, ref_bases, read_bases, start_on_ref_hap)
+            new_pos += lead_removed
+        return new_pos, composed
+    except (CigarBuilderError, ValueError):
+        return None, []
 
 
 def realign_reads_to_best_haplotype(likelihoods, haplotypes,

@@ -2,11 +2,12 @@
 
 ``python -m lorikeet_tpu_torch.cli call -t 1 -r REF -b BAM... -o OUT`` runs
 the `call` path with the pair-HMM on the CUDA kernel.  The argument parser
-and the jax-free helpers are lorikeet_tpu.cli's; this module owns the
-entry point and the config builders, which point at the port's processing
-and map the device flags: ``--force-cpu`` selects the exact f64 host
-pair-HMM, ``--pallas-sw`` runs the realignment Smith-Waterman on the CUDA
-kernel (independent of ``--force-cpu``, and an error without a card), and
+and the parser-side helpers are in ``cli_parser``; this module owns the
+entry point and fills the configs, which point at the port's processing
+and map the device flags: the pair-HMM runs on the card (an error without
+one) unless ``--force-cpu`` selects the exact f64 host pair-HMM,
+``--pallas-sw`` runs the realignment Smith-Waterman on the CUDA kernel
+(independent of ``--force-cpu``, and an error without a card), and
 ``--devices N`` (N > 1) is refused.
 """
 from __future__ import annotations
@@ -15,7 +16,7 @@ import json
 import os
 import sys
 
-from lorikeet_tpu.cli import (
+from lorikeet_tpu_torch.cli_parser import (
     _completion_script, _man_page, _mapping_reference, _warn_inert_flags,
     build_parser,
 )
@@ -67,7 +68,7 @@ def _caller_config(args):
     cfg.do_not_call_svs = args.do_not_call_svs
     cfg.high_memory = args.high_memory
     cfg.devices = args.devices
-    from lorikeet_tpu.io.filter import FlagFilter
+    from lorikeet_tpu_torch.io.filter import FlagFilter
     cfg.flag_filter = FlagFilter(
         include_improper_pairs=args.allow_improper_pairs,
         include_secondary=args.include_secondary,
@@ -124,7 +125,7 @@ def _base_config(args):
         mapq_threshold=args.min_mapq,
         kmer_sizes=tuple(args.kmer_sizes),
         # --force-cpu selects the exact f64 native kernel; otherwise the
-        # CUDA kernel runs when a card is present
+        # CUDA kernel runs, and a machine without a card is an error
         use_cuda=False if args.force_cpu else None,
         use_cuda_sw=bool(getattr(args, "pallas_sw", False)),
     )
@@ -161,7 +162,7 @@ def main(argv=None) -> int:
         return 0
 
     if args.command == "summarise":
-        from lorikeet_tpu.strain.ani import run_summarise
+        from lorikeet_tpu_torch.strain.ani import run_summarise
         out = run_summarise(args.vcfs, args.output_directory,
                             calculate_fst=args.calculate_fst,
                             qual_by_depth_filter=args.qual_by_depth_filter,
@@ -171,7 +172,7 @@ def main(argv=None) -> int:
         return 0
 
     # shared parser (interval_utils.rs parity: a bare number is ignored)
-    from lorikeet_tpu.utils.intervals import parse_limiting_interval
+    from lorikeet_tpu_torch.utils.intervals import parse_limiting_interval
     iv = parse_limiting_interval(args.limiting_interval)
     limit = (iv.start, iv.end) if iv is not None else None
 
@@ -183,7 +184,7 @@ def main(argv=None) -> int:
         print("supply -r and/or -d", file=sys.stderr)
         return 2
     if args.calculate_dnds and not args.gff_file:
-        from lorikeet_tpu.io.mapping import check_for_external_command
+        from lorikeet_tpu_torch.io.mapping import check_for_external_command
         if not check_for_external_command("prodigal"):
             print("--calculate-dnds needs --gff-file or prodigal on PATH",
                   file=sys.stderr)
@@ -194,7 +195,7 @@ def main(argv=None) -> int:
     long_bam_files = list(args.longread_bam_files or [])
     if args.read1 or args.coupled or args.single or args.interleaved \
             or args.longreads:
-        from lorikeet_tpu.io.mapping import map_reads_to_bam
+        from lorikeet_tpu_torch.io.mapping import map_reads_to_bam
         cache = args.bam_file_cache_directory or os.path.join(
             args.output_directory, "bams")
         ref = _mapping_reference(args, cache)
@@ -252,14 +253,14 @@ def main(argv=None) -> int:
     args.longread_bam_files = long_bam_files or None
 
     cfg = _caller_config(args)
-    from lorikeet_tpu.utils.progress import set_log_level
+    from lorikeet_tpu_torch.utils.progress import set_log_level
     from lorikeet_tpu_torch.processing import start_engine
     from lorikeet_tpu_torch.utils.progress import maybe_profile
     set_log_level(args.verbose, args.quiet)
     cfg.min_long_read_size = args.min_long_read_size
     cfg.min_long_read_average_base_qual = args.min_long_read_average_base_qual
     cfg.min_sv_qual = args.min_sv_qual
-    from lorikeet_tpu.io.filter import AlignmentThresholds
+    from lorikeet_tpu_torch.io.filter import AlignmentThresholds
     cfg.alignment_thresholds = AlignmentThresholds(
         args.min_read_aligned_length, args.min_read_percent_identity,
         args.min_read_aligned_percent, args.min_read_aligned_length_pair,
@@ -283,7 +284,7 @@ def main(argv=None) -> int:
             continue
         gdir = os.path.join(args.output_directory, genome)
         if args.calculate_dnds:
-            from lorikeet_tpu.strain.dnds import calculate_dnds, check_for_gff
+            from lorikeet_tpu_torch.strain.dnds import calculate_dnds, check_for_gff
             # dN/dS runs against the FASTA the genome's contigs live in
             ref = _fasta_for_genome(args, genome)
             gff = args.gff_file or check_for_gff(ref, gdir,
@@ -294,8 +295,8 @@ def main(argv=None) -> int:
             else:
                 out["dnds"] = calculate_dnds(ref, out["vcf"], gff, gdir)
         if args.calculate_fst:
-            from lorikeet_tpu.io.vcf import read_vcf
-            from lorikeet_tpu.strain.fst import write_fst
+            from lorikeet_tpu_torch.io.vcf import read_vcf
+            from lorikeet_tpu_torch.strain.fst import write_fst
             contexts, _, samples = read_vcf(out["vcf"])
             samples = samples or ["sample0"]
             out["fst"] = write_fst(contexts, len(samples), samples, gdir,

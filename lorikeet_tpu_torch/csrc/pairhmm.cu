@@ -1,12 +1,15 @@
-// Grouped pair-HMM forward for Hopper (sm_90a).
+// Pair-HMM forward for Hopper (sm_90a): the grouped and the flat kernel.
 //
-// Replaces the Pallas TPU kernel lorikeet_tpu/ops/pairhmm_pallas.py
-// `_kernel_grouped` (+ its shared sweep `_dp_sweep`): per (read, haplotype)
-// pair the log10 forward likelihood over an anti-diagonal wavefront, f32
-// with a power-of-two renormalisation every GROUP = 8 diagonals.  Inputs are
-// the grouped tables of ops/pairhmm_cuda.py:pack_grouped_inputs: table block
-// b sweeps the 32 read rows of tile tile_tab[b] against haplotype
-// hap_tab[b]; out[b * 32 + r] is the result for read row r of that tile.
+// Replaces the Pallas TPU kernels of lorikeet_tpu/ops/pairhmm_pallas.py,
+// `_kernel_grouped` and `_kernel` (+ their shared sweep `_dp_sweep`): per
+// (read, haplotype) pair the log10 forward likelihood over an anti-diagonal
+// wavefront, f32 with a power-of-two renormalisation every GROUP = 8
+// diagonals.  grouped_kernel takes the grouped tables of
+// ops/pairhmm_cuda.py:pack_grouped_inputs: table block b sweeps the 32 read
+// rows of tile tile_tab[b] against haplotype hap_tab[b]; out[b * 32 + r] is
+// the result for read row r of that tile.  flat_kernel takes one row per
+// pair (pack_flat_inputs): read row p against haplotype row p, out[p].
+// Both run the same device function `sweep`.
 //
 // Numerics contract (same as the TPU kernel and the torch twin
 // pairhmm_sweep_torch): eps = expf(q * f32(-ln10/10)); mm = 1 - min(1,
@@ -21,9 +24,15 @@
 // F32_SUSPECT_LOG10 and are recomputed in f64 by the caller).
 //
 // What bounds it on this card.  The DP touches device memory only for its
-// u8 inputs (5 bytes per read base, once per block) and one f32 per pair,
-// against ~25 f32 operations per cell: it is bound by the FP32 pipes and by
-// the serial chain of diagonals inside each pair, not by HBM bytes.
+// u8 inputs (5 bytes per read base, once per block) and one f32 per pair.
+// The recurrence needs 12 f32 multiplies and adds per cell: M = prior *
+// (Pm * mm + Ps * (1 - gg)) 4, I = am * mi + ai * gg 3, D = M * md + D * gg
+// 3, the I + D that the next M reads 1, and the rescaling (five multiplies,
+// three maxima) once in 8 diagonals 1.  `sweep` below issues about 17: it
+// recomputes mm, 1 - gg, 1 - eq and eq / 3 in every cell although they
+// depend on the read row alone, and beside them about 6 integer index,
+// compare and AND operations.  So it is bound by the FP32 pipes and by the
+// serial chain of diagonals inside each pair, not by HBM bytes.
 //
 // Design.  One CTA (4 warps) per table block, the haplotype's base bits in
 // shared memory; each warp sweeps one read of the 32-read tile at a time.
@@ -38,6 +47,18 @@
 // device.  Pad rows (read length 0) are skipped.  A pair
 // stops at the first multiple of 8 diagonals >= R + H: the TPU kernel's
 // further padded diagonals only rescale by exact powers of two.
+//
+// The flat kernel changes only the work distribution: one warp per pair,
+// and each warp stages its own haplotype's base bits in its own slice of
+// shared memory ([warps][hpad] ints).  A warp synchronises with
+// __syncwarp() alone, so warps of one CTA may run different numbers of
+// pairs; the one __syncthreads() (after the base-bit table is loaded) lies
+// before the pair loop.  The slices must fit the 227 KB a CTA can ask for:
+// a batch with long haplotypes runs 2 or 1 warps per CTA, and past that
+// (hpad over ~57,000) each resident warp stages into a slice of global
+// scratch instead, so no pair leaves the device for its length.  The grid
+// is one warp slot per pair, capped (with a stride loop) where scratch is
+// sized per resident warp: scratch read strips, global haplotype slices.
 // Not done yet (later work): TMA/cp.async staging of the inputs, warp
 // specialisation, a shift register instead of the strided hap_s loads.
 
@@ -97,7 +118,7 @@ struct Strip<0> {
 template <int KC>
 __device__ float sweep(Strip<KC>& st, const int K, const int lane,
                        const int R, const int H,
-                       const int* __restrict__ hap_s,
+                       const int* hap_s,   // shared, or global written here
                        const int* __restrict__ lut,
                        const uint8_t* __restrict__ q,
                        const uint8_t* __restrict__ iq,
@@ -278,6 +299,104 @@ int launch(int grid, size_t smem, cudaStream_t stream,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- flat: one warp per pair ----
+
+constexpr int kStaticSmem = 256 * sizeof(int);          // lut
+constexpr size_t kMaxDynSmem = 227 * 1024 - kStaticSmem;
+
+struct FlatPlan {
+  int warps;        // warps per CTA
+  int grid;         // CTAs
+  size_t smem;      // dynamic shared memory per CTA (0: global hap slices)
+  bool global_hap;  // haplotype slices in global scratch
+  bool bounded;     // scratch is sized by grid * warps
+};
+
+FlatPlan flat_plan(int npairs, int rpad, int hpad) {
+  FlatPlan p;
+  const size_t slice = static_cast<size_t>(hpad) * sizeof(int);
+  p.warps = kWarps;
+  while (p.warps > 1 && slice * p.warps > kMaxDynSmem) p.warps >>= 1;
+  p.global_hap = slice * p.warps > kMaxDynSmem;
+  if (p.global_hap) p.warps = kWarps;
+  p.smem = p.global_hap ? 0 : slice * p.warps;
+  p.bounded = p.global_hap || rpad / 32 > kMaxRegK;
+  const int ctas = (npairs + p.warps - 1) / p.warps;
+  p.grid = p.bounded && ctas > kLongCtas ? kLongCtas : ctas;
+  return p;
+}
+
+template <int KC>
+__global__ void __launch_bounds__(kThreads)
+flat_kernel(const uint8_t* __restrict__ quals,
+            const uint8_t* __restrict__ ins_q,
+            const uint8_t* __restrict__ del_q,
+            const uint8_t* __restrict__ gcp_q,
+            const uint8_t* __restrict__ read_u8,
+            const int* __restrict__ read_lens,
+            const uint8_t* __restrict__ haps,
+            const int* __restrict__ hap_lens,
+            const int* __restrict__ base_bits,
+            float* __restrict__ scratch,
+            int* hap_scratch,
+            int npairs, int rpad, int hpad,
+            float* __restrict__ out) {
+  extern __shared__ int hap_slices[];             // [warps][hpad] base bits
+  __shared__ int lut[256];
+  for (int t = threadIdx.x; t < 256; t += blockDim.x) lut[t] = base_bits[t];
+  __syncthreads();              // the only CTA-wide barrier: before the loop
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const size_t slot = static_cast<size_t>(blockIdx.x) * warps + warp;
+  int* hap_w = hap_scratch != nullptr
+      ? hap_scratch + slot * static_cast<size_t>(hpad)
+      : hap_slices + static_cast<size_t>(warp) * hpad;
+  float* slab = KC > 0 ? nullptr
+      : scratch + slot * static_cast<size_t>(rpad) * kNumFields;
+  const size_t stride = static_cast<size_t>(gridDim.x) * warps;
+  for (size_t p = slot; p < static_cast<size_t>(npairs); p += stride) {
+    const int R = read_lens[p];
+    const int H = hap_lens[p];
+    const uint8_t* hap = haps + p * static_cast<size_t>(hpad);
+    for (int t = lane; t < H; t += 32) hap_w[t] = lut[hap[t]];
+    __syncwarp();
+    const int K = (R + 32) / 32;
+    Strip<KC> st(slab, K, lane);
+    const size_t o = p * static_cast<size_t>(rpad);
+    const float v = sweep<KC>(st, K, lane, R, H, hap_w, lut, quals + o,
+                              ins_q + o, del_q + o, gcp_q + o, read_u8 + o);
+    if (lane == 0) out[p] = v;
+    __syncwarp();               // the next pair overwrites this warp's slice
+  }
+}
+
+template <int KC>
+int launch_flat(const FlatPlan& plan, cudaStream_t stream,
+                const void* quals, const void* ins_q, const void* del_q,
+                const void* gcp_q, const void* read_u8,
+                const void* read_lens, const void* haps,
+                const void* hap_lens, const void* base_bits, void* scratch,
+                void* hap_scratch, int npairs, int rpad, int hpad,
+                void* out) {
+  if (plan.smem > 48 * 1024 - kStaticSmem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flat_kernel<KC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(plan.smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  flat_kernel<KC><<<plan.grid, plan.warps * 32, plan.smem, stream>>>(
+      static_cast<const uint8_t*>(quals), static_cast<const uint8_t*>(ins_q),
+      static_cast<const uint8_t*>(del_q), static_cast<const uint8_t*>(gcp_q),
+      static_cast<const uint8_t*>(read_u8),
+      static_cast<const int*>(read_lens), static_cast<const uint8_t*>(haps),
+      static_cast<const int*>(hap_lens), static_cast<const int*>(base_bits),
+      static_cast<float*>(scratch),
+      plan.global_hap ? static_cast<int*>(hap_scratch) : nullptr,
+      npairs, rpad, hpad, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -316,6 +435,50 @@ int pairhmm_grouped_launch(const void* tile_tab, const void* hap_tab,
   if (K <= 8) return launch<8>(nblocks, smem, s, LORIKEET_ARGS);
   if (K <= kMaxRegK) return launch<kMaxRegK>(nblocks, smem, s, LORIKEET_ARGS);
   return launch<0>(long_grid(nblocks), smem, s, LORIKEET_ARGS);
+#undef LORIKEET_ARGS
+}
+
+// Floats of global scratch pairhmm_flat_launch needs for its read strips
+// (0 when they fit in registers), and ints it needs for haplotype slices
+// (0 when they fit in shared memory).
+long long pairhmm_flat_scratch_floats(int npairs, int rpad, int hpad) {
+  if (npairs <= 0 || rpad / 32 <= kMaxRegK) return 0;
+  const FlatPlan p = flat_plan(npairs, rpad, hpad);
+  return static_cast<long long>(p.grid) * p.warps * rpad * kNumFields;
+}
+
+long long pairhmm_flat_hap_scratch_ints(int npairs, int rpad, int hpad) {
+  if (npairs <= 0) return 0;
+  const FlatPlan p = flat_plan(npairs, rpad, hpad);
+  return p.global_hap ? static_cast<long long>(p.grid) * p.warps * hpad : 0;
+}
+
+// Launch the flat forward on `stream`: read row p against haplotype row p.
+// Returns cudaGetLastError() (0 on success).  Device pointers: the five u8
+// planes [npairs, rpad], read_lens int32 [npairs], haps u8 [npairs, hpad],
+// hap_lens int32 [npairs], base_bits int32 [256], scratch f32
+// [pairhmm_flat_scratch_floats], hap_scratch int32
+// [pairhmm_flat_hap_scratch_ints], out f32 [npairs].
+int pairhmm_flat_launch(const void* quals, const void* ins_q,
+                        const void* del_q, const void* gcp_q,
+                        const void* read_u8, const void* read_lens,
+                        const void* haps, const void* hap_lens,
+                        const void* base_bits, void* scratch,
+                        void* hap_scratch, int npairs, int rpad, int hpad,
+                        void* out, void* stream) {
+  if (npairs <= 0) return 0;
+  if (rpad <= 0 || rpad % 32 != 0 || hpad < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FlatPlan plan = flat_plan(npairs, rpad, hpad);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int K = rpad / 32;
+#define LORIKEET_ARGS plan, s, quals, ins_q, del_q, gcp_q, read_u8, \
+    read_lens, haps, hap_lens, base_bits, scratch, hap_scratch, npairs, \
+    rpad, hpad, out
+  if (K <= 4) return launch_flat<4>(LORIKEET_ARGS);
+  if (K <= 8) return launch_flat<8>(LORIKEET_ARGS);
+  if (K <= kMaxRegK) return launch_flat<kMaxRegK>(LORIKEET_ARGS);
+  return launch_flat<0>(LORIKEET_ARGS);
 #undef LORIKEET_ARGS
 }
 

@@ -38,9 +38,12 @@
 // 229,376 bytes, under the 232,448 a CTA may use on this card; that is the
 // cap ops/sw_cuda.py (MAX_REF_LEN) sends to the kernel.
 //
-// What bounds it on this card.  Each cell costs ~20 integer operations and
-// 5 shared-memory loads; the pair's R + A diagonals form a serial chain with
-// a barrier each, and a row is active only while its column is inside the
+// What bounds it on this card.  The recurrence needs 23 int32 operations
+// per cell (substitution score 3; each gap's open add, extend add, compare,
+// value select, length add and length select 6; the choice of three with
+// its backtrack value 7; the floor 1), and the kernel adds index arithmetic
+// and 5 shared-memory loads.  The pair's R + A diagonals form a serial
+// chain with a barrier each, and a row is active only while its column is inside the
 // alt, so a 650 x 100 pair keeps about 100 of its 651 threads busy per
 // diagonal.  The traceback is serial in one thread.  Later work: a warp per
 // short pair (no barriers, shuffles instead of shared memory), threads

@@ -18,8 +18,10 @@ def require_cuda() -> torch.device:
     """The CUDA device, or RuntimeError when this process has no card."""
     if not torch.cuda.is_available():
         raise RuntimeError(
-            "CUDA requested but torch.cuda.is_available() is False "
-            f"(torch {torch.__version__}, built for CUDA {torch.version.cuda})")
+            "no CUDA device: torch.cuda.is_available() is False "
+            f"(torch {torch.__version__}, built for CUDA "
+            f"{torch.version.cuda}).  This path runs on the card; only an "
+            "explicit --force-cpu / use_cuda=False selects the host")
     return torch.device("cuda")
 
 

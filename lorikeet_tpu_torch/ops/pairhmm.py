@@ -118,7 +118,7 @@ def pairhmm_forward_checked(results, pairs):
 def pairhmm_forward_f64(pairs) -> np.ndarray:
     """Exact f64 log10 likelihoods of a pair list: the threaded native
     batch kernel, or per-pair :func:`pairhmm_forward_np` without it."""
-    from lorikeet_tpu.ops.pairhmm_native import pairhmm_forward_native_batch
+    from lorikeet_tpu_torch.ops.pairhmm_native import pairhmm_forward_native_batch
     exact = pairhmm_forward_native_batch(pairs)
     if exact is None:
         exact = np.array([pairhmm_forward_np(*p) for p in pairs])

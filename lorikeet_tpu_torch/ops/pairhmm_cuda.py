@@ -1,11 +1,14 @@
-"""Grouped pair-HMM forward on a CUDA card: packer, torch twin, kernel.
+"""Pair-HMM forward on a CUDA card, grouped and flat: packers, torch twin,
+kernels.
 
-Counterpart of lorikeet_tpu/ops/pairhmm_pallas.py's grouped path
-(``pack_grouped_inputs`` + ``_kernel_grouped`` over ``_dp_sweep``).  A
-region's pairs are the cross product of its reads and haplotypes, so the
-packer ships each read and each haplotype once and a table of blocks drives
-the sweep: block b runs read tile ``tile_tab[b]`` (32 read rows) against
-haplotype row ``hap_tab[b]``.
+Counterpart of lorikeet_tpu/ops/pairhmm_pallas.py: its grouped path
+(``pack_grouped_inputs`` + ``_kernel_grouped`` over ``_dp_sweep``) and its
+flat path (``pack_pallas_inputs`` + ``_kernel``, ``pairhmm_forward_pallas``
+and ``pairhmm_forward_sharded``).  A region's pairs are the cross product of
+its reads and haplotypes, so the grouped packer ships each read and each
+haplotype once and a table of blocks drives the sweep: block b runs read
+tile ``tile_tab[b]`` (32 read rows) against haplotype row ``hap_tab[b]``.
+The flat form is one row per pair: read row p against haplotype row p.
 
 - :func:`pack_grouped_inputs` builds those tables and planes on the host,
   sized to the work (no fixed dispatch shapes, no pad blocks).
@@ -15,6 +18,11 @@ haplotype row ``hap_tab[b]``.
   (``csrc/pairhmm.cu``) for tensors on a CUDA device, and takes the plain
   version only for tensors on the CPU.  It never falls back: a failed build
   or launch raises.
+- :func:`pack_flat_inputs`, :func:`pairhmm_flat_torch` and
+  :func:`pairhmm_flat_cuda` are the same three for the flat kernel;
+  :func:`pairhmm_forward_flat` is its entry point on padded batch arrays and
+  :func:`pairhmm_forward_sharded` splits the pairs over the ranks of a
+  ``torch.distributed`` group.
 """
 from __future__ import annotations
 
@@ -49,6 +57,8 @@ GROUP_BLOCK_B = 32
 
 #: kernel launches made by pairhmm_grouped_cuda in this process
 LAUNCHES = 0
+#: kernel launches made by pairhmm_flat_cuda in this process
+FLAT_LAUNCHES = 0
 
 _LN10_OVER_M10 = np.float32(-np.log(10.0) / 10.0)
 _THIRD = np.float32(1.0 / TRISTATE_CORRECTION)
@@ -178,32 +188,46 @@ def to_tensors(arrays: dict, device) -> dict:
 
 def pairhmm_sweep_torch(t: dict) -> torch.Tensor:
     """Plain torch version of the grouped sweep: f32 [nblocks * 32], one
-    value per (block, tile row), on the device of the inputs.
-
-    This is the TPU kernel's ``_dp_sweep`` written with torch ops on
-    [rows, Rpad] tensors (rows = every block's 32 tile rows): state shifts
-    are ``torch.roll`` along the read axis, the renormalisation exponent is
-    read through ``.view(torch.int32)``.  Pad rows (read length 0) yield a
-    value that no pair reads."""
-    f32 = torch.float32
-    quals = t["quals"]
-    dev = quals.device
-    rpad = quals.shape[1]
+    value per (block, tile row), on the device of the inputs.  Pad rows
+    (read length 0) yield a value that no pair reads."""
+    dev = t["quals"].device
     tile = GROUP_BLOCK_B
     rows = (t["tile_tab"].long()[:, None] * tile
             + torch.arange(tile, device=dev)).reshape(-1)
     hrow = t["hap_tab"].long().repeat_interleave(tile)
-    R = t["read_lens"].long()[rows][:, None]                  # [TB, 1]
-    H = t["hap_lens"].long()[hrow][:, None]
-    lut = t["base_bits"]
-    hap_bits = lut[t["haps"].long()[hrow]]                    # [TB, Hmax]
+    return _sweep_rows({p: t[p][rows] for p in _PLANES},
+                       t["read_lens"].long()[rows], t["hap_lens"].long()[hrow],
+                       t["haps"][hrow], t["base_bits"])
+
+
+def pairhmm_flat_torch(t: dict) -> torch.Tensor:
+    """Plain torch version of the flat sweep: f32 [B], read row p against
+    haplotype row p, on the device of the inputs."""
+    return _sweep_rows({p: t[p] for p in _PLANES}, t["read_lens"].long(),
+                       t["hap_lens"].long(), t["haps"], t["base_bits"])
+
+
+def _sweep_rows(planes: dict, read_lens, hap_lens, haps, lut) -> torch.Tensor:
+    """The sweep both plain versions share, one pair per row: the TPU
+    kernel's ``_dp_sweep`` written with torch ops on [TB, Rpad] tensors.
+    ``planes`` holds the five u8 read planes [TB, Rpad], ``haps`` u8
+    [TB, Hmax], ``read_lens`` / ``hap_lens`` int64 [TB].  State shifts are
+    ``torch.roll`` along the read axis, the renormalisation exponent is read
+    through ``.view(torch.int32)``."""
+    f32 = torch.float32
+    quals = planes["quals"]
+    dev = quals.device
+    tb, rpad = quals.shape
+    R = read_lens[:, None]                                    # [TB, 1]
+    H = hap_lens[:, None]
+    hap_bits = lut[haps.long()]                               # [TB, Hmax]
     hmax = hap_bits.shape[1]
     lane = torch.arange(rpad, device=dev)[None, :]
     ok = (lane >= 1) & (lane <= R)
     eps_of_phred = torch.from_numpy(_EPS_OF_PHRED).to(dev)
 
     def eps_of(name):
-        return torch.where(ok, eps_of_phred[t[name][rows].long()], 0.0)
+        return torch.where(ok, eps_of_phred[planes[name].long()], 0.0)
 
     eps = eps_of("quals")
     tmi = eps_of("ins_q")
@@ -215,12 +239,11 @@ def pairhmm_sweep_torch(t: dict) -> torch.Tensor:
     tdd = eg
     pm = 1.0 - eps
     px = eps * torch.tensor(_THIRD, device=dev)
-    rp = torch.where(ok, lut[t["read_u8"][rows].long()], 0)
+    rp = torch.where(ok, lut[planes["read_u8"].long()], 0)
     boundary = lane == 0
     is_end_row = lane == R
     b0 = 1.0 / H.clamp(min=1).to(f32)                         # [TB, 1]
 
-    tb = rows.numel()
     zeros = torch.zeros(tb, rpad, dtype=f32, device=dev)
     no_base = torch.zeros(tb, 1, dtype=torch.int32, device=dev)
     m1 = i1 = sm = si = sd = acc = zeros
@@ -278,6 +301,12 @@ def _kernel() -> ctypes.CDLL:
         lib.pairhmm_grouped_launch.restype = ci
         lib.pairhmm_scratch_floats.argtypes = [ci, ci]
         lib.pairhmm_scratch_floats.restype = ctypes.c_longlong
+        lib.pairhmm_flat_launch.argtypes = [vp] * 11 + [ci] * 3 + [vp, vp]
+        lib.pairhmm_flat_launch.restype = ci
+        for fn in (lib.pairhmm_flat_scratch_floats,
+                   lib.pairhmm_flat_hap_scratch_ints):
+            fn.argtypes = [ci, ci, ci]
+            fn.restype = ctypes.c_longlong
         _KERNEL = lib
     return _KERNEL
 
@@ -286,26 +315,44 @@ _DTYPES = {"tile_tab": torch.int32, "hap_tab": torch.int32,
            "hap_lens": torch.int32, "read_lens": torch.int32,
            "haps": torch.uint8, "base_bits": torch.int32,
            **{p: torch.uint8 for p in _PLANES}}
+_FLAT_NAMES = (*_PLANES, "read_lens", "haps", "hap_lens", "base_bits")
 
 
-def _check_inputs(t: dict) -> None:
+def _check_tensors(t: dict, names) -> tuple:
+    """Device, dtype, contiguity and plane shapes of the named inputs;
+    returns (rows, rpad)."""
     dev = t["quals"].device
-    for name, dtype in _DTYPES.items():
-        x = t[name]
+    for name in names:
+        x, dtype = t[name], _DTYPES[name]
         if x.device != dev or x.dtype != dtype or not x.is_contiguous():
             raise ValueError(f"pairhmm input {name}: want contiguous {dtype} "
                              f"on {dev}, got {x.dtype} on {x.device}")
     rows, rpad = t["quals"].shape
-    if rpad % 128 or rows % GROUP_BLOCK_B:
-        raise ValueError(f"pairhmm planes {tuple(t['quals'].shape)}: rows "
-                         f"must be a multiple of {GROUP_BLOCK_B}, Rpad of 128")
     for p in _PLANES:
         if t[p].shape != (rows, rpad):
             raise ValueError(f"pairhmm plane {p} shape {tuple(t[p].shape)}")
     if t["read_lens"].shape != (rows,) or t["base_bits"].shape != (256,) \
-            or t["tile_tab"].shape != t["hap_tab"].shape \
+            or t["haps"].ndim != 2 \
             or t["haps"].shape[0] != t["hap_lens"].shape[0]:
         raise ValueError("pairhmm tables and planes disagree in shape")
+    return rows, rpad
+
+
+def _check_inputs(t: dict) -> None:
+    rows, rpad = _check_tensors(t, _DTYPES)
+    if rpad % 128 or rows % GROUP_BLOCK_B:
+        raise ValueError(f"pairhmm planes {tuple(t['quals'].shape)}: rows "
+                         f"must be a multiple of {GROUP_BLOCK_B}, Rpad of 128")
+    if t["tile_tab"].shape != t["hap_tab"].shape:
+        raise ValueError("pairhmm tables and planes disagree in shape")
+
+
+def _check_flat_inputs(t: dict) -> None:
+    rows, rpad = _check_tensors(t, _FLAT_NAMES)
+    if rpad % 32 or t["haps"].shape[0] != rows:
+        raise ValueError(f"flat pairhmm planes {tuple(t['quals'].shape)}, "
+                         f"haps {tuple(t['haps'].shape)}: Rpad must be a "
+                         "multiple of 32, one haplotype row per read row")
 
 
 def pairhmm_grouped_cuda(t: dict) -> torch.Tensor:
@@ -354,3 +401,118 @@ def pairhmm_forward_grouped(pairs, device) -> np.ndarray:
     flat = pairhmm_grouped_cuda(to_tensors(arrays, device))
     pos = torch.from_numpy(out_pos).to(device)
     return flat[pos].cpu().numpy().astype(np.float64)
+
+
+# ---- flat: one row per pair ----
+
+def pack_flat_inputs(haps, hap_lens, reads, read_lens, quals, ins_quals,
+                     del_quals, gcps) -> dict:
+    """Padded batch arrays (``pack_pairhmm_batch``'s layout: haps [B, Hmax],
+    reads and the four quality planes [B, Rmax], lengths [B]) as the flat
+    kernel's operands: the five u8 planes [B, Rpad] with the read at
+    columns 1..R (column 0 is the boundary row), ``haps`` u8 [B, Hmax] and
+    int32 ``read_lens`` / ``hap_lens`` [B].  Exactly B rows: no slabs, no
+    pad pairs."""
+    reads = np.asarray(reads, np.uint8)
+    B, rmax = reads.shape
+    rpad = _round_up(rmax + 1, 32)
+    arrays = {}
+    for name, src in zip(_PLANES, (quals, ins_quals, del_quals, gcps, reads)):
+        plane = np.zeros((B, rpad), np.uint8)
+        plane[:, 1:rmax + 1] = np.asarray(src, np.uint8)
+        arrays[name] = plane
+    arrays["read_lens"] = np.ascontiguousarray(read_lens, np.int32)
+    arrays["haps"] = np.ascontiguousarray(haps, np.uint8)
+    arrays["hap_lens"] = np.ascontiguousarray(hap_lens, np.int32)
+    return arrays
+
+
+def pairhmm_flat_cuda(t: dict) -> torch.Tensor:
+    """Flat forward, f32 [B], on the device of ``t``'s tensors: the CUDA
+    kernel for a CUDA device, the plain version (:func:`pairhmm_flat_torch`)
+    for the CPU."""
+    global FLAT_LAUNCHES
+    dev = t["quals"].device
+    if dev.type == "cpu":
+        return pairhmm_flat_torch(t)
+    if dev.type != "cuda":
+        raise ValueError(f"pairhmm_flat_cuda: unsupported device {dev}")
+    _check_flat_inputs(t)
+    lib = _kernel()
+    npairs, rpad = t["quals"].shape
+    hpad = t["haps"].shape[1]
+    out = torch.empty(npairs, dtype=torch.float32, device=dev)
+    if npairs == 0:
+        return out
+    scratch = torch.empty(
+        max(1, lib.pairhmm_flat_scratch_floats(npairs, rpad, hpad)),
+        dtype=torch.float32, device=dev)
+    hap_scratch = torch.empty(
+        max(1, lib.pairhmm_flat_hap_scratch_ints(npairs, rpad, hpad)),
+        dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.pairhmm_flat_launch(
+            *(t[k].data_ptr() for k in _FLAT_NAMES), scratch.data_ptr(),
+            hap_scratch.data_ptr(), npairs, rpad, hpad, out.data_ptr(),
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"flat pairhmm kernel launch failed: CUDA error "
+                           f"{rc} (B={npairs}, Rpad={rpad}, Hmax={hpad})")
+    FLAT_LAUNCHES += 1
+    return out
+
+
+def _forward_flat_tensor(arrays: dict, device) -> torch.Tensor:
+    device = torch.device(device)
+    if device.type == "cuda":
+        from lorikeet_tpu_torch.device import require_cuda
+        require_cuda()
+    return pairhmm_flat_cuda(to_tensors(arrays, device))
+
+
+def pairhmm_forward_flat(haps, hap_lens, reads, read_lens, quals, ins_quals,
+                         del_quals, gcps, device="cuda") -> np.ndarray:
+    """Batched forward log10 likelihoods, f32 [B], of read b against
+    haplotype b: the contract of the JAX package's
+    ``pairhmm_forward_pallas``.  One kernel launch on a CUDA ``device``;
+    the plain version on ``"cpu"``."""
+    arrays = pack_flat_inputs(haps, hap_lens, reads, read_lens, quals,
+                              ins_quals, del_quals, gcps)
+    return _forward_flat_tensor(arrays, device).cpu().numpy()
+
+
+def rank_share(n: int, group=None) -> tuple:
+    """(lo, hi, per, world): this rank's contiguous share [lo, hi) of n
+    items, ``per`` = ceil(n / world) items a rank.  World size 1 when
+    ``torch.distributed`` has no initialised group."""
+    from lorikeet_tpu_torch.parallel.hosts import group_rank_world
+    rank, world = group_rank_world(group)
+    per = -(-n // world)
+    lo = min(n, rank * per)
+    return lo, min(n, lo + per), per, world
+
+
+def pairhmm_forward_sharded(haps, hap_lens, reads, read_lens, quals,
+                            ins_quals, del_quals, gcps, device="cuda",
+                            group=None) -> np.ndarray:
+    """:func:`pairhmm_forward_flat` over the ranks of a ``torch.distributed``
+    group: each rank sweeps a contiguous share of the pairs with the flat
+    kernel and the shares are gathered in order (``all_gather`` into a
+    padded tensor, cut to B), so every rank returns all B values.  With no
+    group initialised this is world size 1 and equals
+    :func:`pairhmm_forward_flat`."""
+    B = len(read_lens)
+    lo, hi, per, world = rank_share(B, group)
+    local = torch.zeros(per, dtype=torch.float32, device=torch.device(device))
+    if hi > lo:
+        cut = [np.asarray(a)[lo:hi] for a in (
+            haps, hap_lens, reads, read_lens, quals, ins_quals, del_quals,
+            gcps)]
+        local[:hi - lo] = _forward_flat_tensor(pack_flat_inputs(*cut), device)
+    if world == 1:
+        return local.cpu().numpy()
+    import torch.distributed as dist
+    parts = [torch.empty_like(local) for _ in range(world)]
+    dist.all_gather(parts, local, group=group)
+    return torch.cat(parts)[:B].cpu().numpy()

@@ -22,7 +22,7 @@ import ctypes
 import numpy as np
 import torch
 
-from lorikeet_tpu.ops.smith_waterman import (
+from lorikeet_tpu_torch.ops.smith_waterman import (
     MATRIX_MIN_CUTOFF, OverhangStrategy, SWParameters, _CIGAR_OPS, _to_bytes,
     align,
 )

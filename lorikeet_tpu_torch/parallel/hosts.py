@@ -1,7 +1,6 @@
 """Multi-process work distribution: which share of the genomes this process
 takes.  Counterpart of lorikeet_tpu/parallel/hosts.py with
-``torch.distributed`` in place of ``jax.distributed``; ``host_shard`` is
-imported from there unchanged."""
+``torch.distributed`` in place of ``jax.distributed``."""
 from __future__ import annotations
 
 import os
@@ -22,3 +21,25 @@ def distributed_context():
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
+
+
+def group_rank_world(group=None) -> tuple:
+    """(rank, world size) in ``group`` (None: the default group) of an
+    initialised ``torch.distributed``; (0, 1) when there is none."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(group), dist.get_world_size(group)
+    return 0, 1
+
+
+def host_shard(items: list, process_index: int = None,
+               process_count: int = None) -> list:
+    """Deterministic round-robin shard of independent work items for this
+    host.  Round-robin (not block) so that genome-size skew spreads evenly
+    when inputs are sorted by size."""
+    if process_count is None:
+        process_index, process_count = distributed_context()
+    if process_count <= 1:
+        return list(items)
+    return [x for i, x in enumerate(items)
+            if i % process_count == process_index]

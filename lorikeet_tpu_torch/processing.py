@@ -13,10 +13,12 @@ padding/size defaults.
 
 Counterpart of lorikeet_tpu/processing.py.  The orchestration is the same;
 what changed is where the device comes in: the pair-HMM runs on the CUDA
-kernel when ``cfg.use_cuda`` is set (resolved once, at _configure_devices),
-activity profiling stays on the host, there is no device mesh and no
-compile prewarm, and the ``-t`` span-worker pool (lorikeet_tpu/parallel/
-pool.py) is not ported: start_engine asks for ``-t 1``.
+kernel unless ``cfg.use_cuda`` is False (resolved once, at
+_configure_devices; no card is then an error), activity profiling stays on
+the host unless LORIKEET_DEVICE_ACTIVITY=1 sends it through the device
+chain (parallel/pipeline.py), there is no device mesh and no compile
+prewarm, and the ``-t`` span-worker pool (lorikeet_tpu/parallel/pool.py) is
+not ported: start_engine asks for ``-t 1``.
 """
 from __future__ import annotations
 
@@ -26,10 +28,10 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from lorikeet_tpu_torch.calling.engine import CallerConfig, HaplotypeCallerEngine
-from lorikeet_tpu.io.bam import BamReader, open_bam
-from lorikeet_tpu.io.fasta import FastaReader
-from lorikeet_tpu.io.vcf import write_vcf
-from lorikeet_tpu.models.activity import (
+from lorikeet_tpu_torch.io.bam import BamReader, open_bam
+from lorikeet_tpu_torch.io.fasta import FastaReader
+from lorikeet_tpu_torch.io.vcf import write_vcf
+from lorikeet_tpu_torch.models.activity import (
     RefVsAnyProfile, accumulate_reads, active_probabilities, band_pass_smooth,
     extract_regions,
 )
@@ -51,7 +53,7 @@ def _read_passes_filters(rec, mapq_threshold=20, read_type="short",
     minimum length and average base quality (:70-77).  ``flag_filter``
     gates improper-pair / secondary / supplementary handling
     (read_utils.rs:44-48 consults FlagFilter; secondary reads never pass)."""
-    from lorikeet_tpu.utils.cigar import read_length, reference_length
+    from lorikeet_tpu_torch.utils.cigar import read_length, reference_length
     if len(rec.seq) == 0 or len(rec.qual) == 0 or not rec.cigar:
         return False
     if rec.is_secondary or rec.is_unmapped:
@@ -243,39 +245,43 @@ def _merge_parts(parts: list, n_samples: int) -> ContigResult:
 
 
 def _device_activity(cfg) -> bool:
-    """Activity profiling runs on the host.  The device activity chain
-    (lorikeet_tpu/parallel/pipeline.py) is not ported yet, so forcing it
-    with LORIKEET_DEVICE_ACTIVITY=1 is an error rather than a silent
-    host run."""
-    if os.environ.get("LORIKEET_DEVICE_ACTIVITY") == "1":
-        raise NotImplementedError(
-            "LORIKEET_DEVICE_ACTIVITY=1: the device activity chain is not "
-            "ported yet")
-    return False
+    """Whether activity profiling runs as the device chain
+    (parallel/pipeline.py: EM, HQ-soft-clip expansion and band-pass as torch
+    ops).  The JAX package takes the chain by default only under a mesh of
+    more than one device; this build drives one card, so the host EM +
+    band-pass stay the default and LORIKEET_DEVICE_ACTIVITY=1 (or 0)
+    decides."""
+    return os.environ.get("LORIKEET_DEVICE_ACTIVITY") == "1"
+
+
+def _activity_device(cfg) -> str:
+    """Device of the activity chain: the pair-HMM's (PAIRHMM_DEVICE), or
+    the CPU when the caller asked for the host (``use_cuda`` False)."""
+    if getattr(cfg, "use_cuda", None) is False:
+        return "cpu"
+    from lorikeet_tpu_torch.calling import likelihoods
+    return likelihoods.PAIRHMM_DEVICE
 
 
 def _configure_devices(cfg):
-    """Resolve ``cfg.use_cuda`` once for the run: None becomes
-    torch.cuda.is_available(), True requires a card.  ``cfg.use_cuda_sw``
-    (independent of use_cuda) requires a card too, unless the tests moved
-    SW_DEVICE to the CPU.  One card only: ``--devices`` must be 'auto' or 1
-    (there is no device mesh)."""
+    """Resolve ``cfg.use_cuda`` once for the run: None means the card, as
+    True does, and the card is then required; only False (``--force-cpu``)
+    selects the f64 host kernel.  ``cfg.use_cuda_sw`` (independent of
+    use_cuda) requires a card too.  The tests move PAIRHMM_DEVICE /
+    SW_DEVICE to the CPU to run the plain versions through the same path.
+    One card only: ``--devices`` must be 'auto' or 1 (there is no device
+    mesh)."""
     import torch
 
-    from lorikeet_tpu.utils.progress import log
+    from lorikeet_tpu_torch.calling.likelihoods import resolve_use_cuda
+    from lorikeet_tpu_torch.utils.progress import log
     spec = getattr(cfg, "devices", None) or "auto"
     if str(spec) not in ("auto", "1"):
         raise ValueError(f"--devices {spec}: this build drives one CUDA "
                          "device; pass --devices 1 or auto")
-    if cfg.use_cuda is None:
-        cfg.use_cuda = torch.cuda.is_available()
-        log.info("pair-HMM on %s", "the CUDA kernel" if cfg.use_cuda
-                 else "the f64 host kernel (no CUDA device)")
-    elif cfg.use_cuda:
-        from lorikeet_tpu_torch.calling import likelihoods
-        if torch.device(likelihoods.PAIRHMM_DEVICE).type == "cuda":
-            from lorikeet_tpu_torch.device import require_cuda
-            require_cuda()
+    cfg.use_cuda = resolve_use_cuda(cfg.use_cuda)
+    log.info("pair-HMM on %s", "the CUDA kernel" if cfg.use_cuda
+             else "the f64 host kernel")
     if cfg.use_cuda_sw:
         from lorikeet_tpu_torch.ops import sw_cuda
         if torch.device(sw_cuda.SW_DEVICE).type == "cuda":
@@ -284,14 +290,12 @@ def _configure_devices(cfg):
 
 
 def _cpu_only_backend(cfg) -> bool:
-    """True when no CUDA device is in play (worker processes then cannot
-    contend for a card)."""
+    """True when the caller asked for the host on every path (worker
+    processes then cannot contend for a card): ``use_cuda`` False and no
+    device SW.  ``use_cuda`` None means the card."""
     if getattr(cfg, "use_cuda_sw", False):
         return False
-    if getattr(cfg, "use_cuda", None) is not None:
-        return not cfg.use_cuda
-    import torch
-    return not torch.cuda.is_available()
+    return getattr(cfg, "use_cuda", None) is False
 
 
 _SPAN_WORKER_CACHE: dict = {}
@@ -344,7 +348,7 @@ def _call_span(fasta, bams, contig_name, cfg, engine, lo, hi,
 
     # hot-path stage accounting (utils.progress.GLOBAL_STAGES; off = no-op)
     import time as _time
-    from lorikeet_tpu.utils import progress as _prog
+    from lorikeet_tpu_torch.utils import progress as _prog
     _tick = [_time.perf_counter()]
 
     def _mark(stage):
@@ -365,7 +369,7 @@ def _call_span(fasta, bams, contig_name, cfg, engine, lo, hi,
     # ---- activity profiling over [lo, hi) ----
     read_types = getattr(cfg, "read_types", None) or ["short"] * n_samples
     thresholds = getattr(cfg, "alignment_thresholds", None)
-    from lorikeet_tpu.io.filter import FlagFilter
+    from lorikeet_tpu_torch.io.filter import FlagFilter
     flag_filter = getattr(cfg, "flag_filter", None) or FlagFilter()
     profiles = [RefVsAnyProfile.zeros(hi - lo, cfg.ploidy) for _ in range(n_samples)]
     # per-sample read source: ("eager", [records]) or ("lazy", bam, tid,
@@ -391,7 +395,7 @@ def _call_span(fasta, bams, contig_name, cfg, engine, lo, hi,
                                  or not thresholds.active):
             cols = getattr(bam, "columnar", lambda t: None)(tid_per_bam[s])
         if cols is not None:
-            from lorikeet_tpu.models.activity import accumulate_reads_columnar
+            from lorikeet_tpu_torch.models.activity import accumulate_reads_columnar
             idx = bam.fetch_indices(tid_per_bam[s], lo, hi, mask=mask)
             if accumulate_reads_columnar(
                     profiles[s], cols, idx, ref_seq[lo:hi], lo, hi,
@@ -409,7 +413,7 @@ def _call_span(fasta, bams, contig_name, cfg, engine, lo, hi,
             rec.sample_index = s
             candidates.append(rec)
         if thresholds is not None and thresholds.active:
-            from lorikeet_tpu.io.filter import apply_alignment_thresholds
+            from lorikeet_tpu_torch.io.filter import apply_alignment_thresholds
             candidates = apply_alignment_thresholds(candidates, thresholds)
         sample_reads[s] = ("eager", candidates)
         accumulate_reads(profiles[s], candidates, ref_seq[lo:hi], lo, hi,
@@ -425,19 +429,27 @@ def _call_span(fasta, bams, contig_name, cfg, engine, lo, hi,
     hq_sum = sum(p.hq_sc_sum for p in profiles)
     hq_mean = np.where(hq_n > 0, hq_sum / np.maximum(hq_n, 1), 0.0)
     prop = getattr(cfg, "max_prob_propagation_distance", 50)
-    _device_activity(cfg)               # host EM + band-pass (see there)
-    raw_probs = active_probabilities(gls, cfg.ploidy,
-                                     cfg.snp_heterozygosity,
-                                     cfg.heterozygosity_stdev,
-                                     cfg.stand_min_conf)
-    smoothed = band_pass_smooth(raw_probs, hq_mean,
-                                max_prob_propagation=prop)
+    if _device_activity(cfg):
+        # EM + band-pass as one chain of torch ops on the device
+        from lorikeet_tpu_torch.parallel.pipeline import (
+            smoothed_activity_device)
+        smoothed = smoothed_activity_device(
+            gls, hq_mean, cfg.ploidy, cfg.snp_heterozygosity,
+            cfg.heterozygosity_stdev, cfg.stand_min_conf,
+            max_prob_propagation=prop, device=_activity_device(cfg))
+    else:
+        raw_probs = active_probabilities(gls, cfg.ploidy,
+                                         cfg.snp_heterozygosity,
+                                         cfg.heterozygosity_stdev,
+                                         cfg.stand_min_conf)
+        smoothed = band_pass_smooth(raw_probs, hq_mean,
+                                    max_prob_propagation=prop)
     # forced-calling feature VCF: regions carrying given alleles are called
     # even when inactive (haplotype_caller_engine.rs:1166-1177) — realised
     # here by forcing the activity probability at given starts
     given_span = []
     if getattr(cfg, "features_vcf", None):
-        from lorikeet_tpu.calling.given_alleles import load_feature_vcf
+        from lorikeet_tpu_torch.calling.given_alleles import load_feature_vcf
         by_contig = load_feature_vcf(cfg.features_vcf)
         given_span = [vc for vc in by_contig.get(contig_name, [])
                       if lo <= vc.start < hi]
@@ -456,7 +468,7 @@ def _call_span(fasta, bams, contig_name, cfg, engine, lo, hi,
     # ---- prepare each active region (host), then run ONE batched pair-HMM
     # dispatch for the whole span (regions are owned by the chunk their
     # active span STARTS in, so halo overlaps never double-call) ----
-    from lorikeet_tpu.calling.clipping import (
+    from lorikeet_tpu_torch.calling.clipping import (
         finalize_region_reads, finalize_region_reads_columnar,
     )
     from lorikeet_tpu_torch.calling.engine import call_regions_batched
@@ -737,7 +749,7 @@ def _assemble_genome_outputs(spec, fasta, results, genome_dir, cfg,
                              sample_names, n_samples) -> dict:
     """Gather per-contig results into the genome VCF + ANI tables (the
     single-writer tail of the per-genome task)."""
-    from lorikeet_tpu.strain.ani import run_ani
+    from lorikeet_tpu_torch.strain.ani import run_ani
 
     all_calls = []
     passing_rle = [[] for _ in range(n_samples)]
@@ -938,7 +950,7 @@ def split_bams_to_genomes(bam_paths: list, bams: list, specs: list,
     ``writer_only=False`` on a multi-process run, callers should let only
     one process write (see start_engine) and have the rest wait on the
     ``.split_done`` marker via wait_for_split_bams."""
-    from lorikeet_tpu.io.bam_writer import write_bam
+    from lorikeet_tpu_torch.io.bam_writer import write_bam
     os.makedirs(cache_dir, exist_ok=True)
     out = {}
     for p, rdr in zip(bam_paths, bams):
@@ -1019,7 +1031,7 @@ def start_engine(mode: str, references: list, bam_paths: list,
     # every process keeps every genome and work shards at CHUNK granularity
     # inside run_genome_sharded instead (the reference's region-level rayon
     # parallelism, assembly_region_walker.rs:139-141, spread across hosts)
-    from lorikeet_tpu.parallel.hosts import host_shard
+    from lorikeet_tpu_torch.parallel.hosts import host_shard
     from lorikeet_tpu_torch.parallel.hosts import distributed_context
     pidx, pcnt = distributed_context()
     cfg.chunk_shard = pcnt > 1 and len(specs) < pcnt
@@ -1055,7 +1067,7 @@ def start_engine(mode: str, references: list, bam_paths: list,
             names = b.sample_names()
             sample_names.append(names[0] if names else f"sample{k}")
 
-    from lorikeet_tpu.utils.progress import ProgressTree, StageTimer, log
+    from lorikeet_tpu_torch.utils.progress import ProgressTree, StageTimer, log
 
     split_map = None
     if split_bams and len(specs) > 1:
@@ -1133,7 +1145,7 @@ def _genome_task(payload):
     # environment and would otherwise all contend for the single card.
     # Workers are CPU-only by design; the parent process owns the device.
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
-    from lorikeet_tpu.utils.progress import ProgressTree, StageTimer, log
+    from lorikeet_tpu_torch.utils.progress import ProgressTree, StageTimer, log
     bams = [open_bam(p, high_memory=getattr(cfg, "high_memory", False))
             for p in genome_bam_paths]
     progress = ProgressTree(1, enabled=False)
@@ -1172,7 +1184,7 @@ def _process_genome(spec, mode, bams, bam_paths, long_bam_paths, output_dir,
                     and not getattr(cfg, "do_not_call_svs", False):
                 # SV calling on long-read samples (lorikeet_engine.rs:370-383)
                 progress.update(spec.name, "calling structural variants")
-                from lorikeet_tpu.strain.sv import call_structural_variants
+                from lorikeet_tpu_torch.strain.sv import call_structural_variants
                 with timer.stage("sv"):
                     sv = call_structural_variants(
                         long_bam_paths, gdir, spec.fasta,
@@ -1203,14 +1215,14 @@ def _process_genome(spec, mode, bams, bam_paths, long_bam_paths, output_dir,
 
             if mode == "consensus":
                 progress.update(spec.name, "writing consensus genomes")
-                from lorikeet_tpu.strain.consensus import generate_consensus
+                from lorikeet_tpu_torch.strain.consensus import generate_consensus
                 with timer.stage("consensus"):
                     out["consensus"] = generate_consensus(
                         spec.fasta, out["vcf"], gdir, contigs=spec.contigs,
                         genome_name=spec.name)
             elif mode == "genotype":
                 progress.update(spec.name, "resolving strains")
-                from lorikeet_tpu.strain.genotype_mode import run_genotype
+                from lorikeet_tpu_torch.strain.genotype_mode import run_genotype
                 with timer.stage("genotype"):
                     out.update(run_genotype(
                         spec.fasta, out["vcf"], gdir, bam_paths=bam_paths,

@@ -1,14 +1,75 @@
-"""Optional profiler trace around a run (``--profile-dir``).
+"""Observability: logging, per-genome progress lines, per-stage timers,
+and an optional profiler trace (``--profile-dir``).
 
-Counterpart of ``maybe_profile`` in lorikeet_tpu/utils/progress.py, with
-``torch.profiler`` in place of ``jax.profiler``.  Logging, progress lines
-and the stage timers (``GLOBAL_STAGES`` included, so that it stays one
-object) are imported from ``lorikeet_tpu.utils.progress`` unchanged.
+Reference parity: the reference's telemetry is env_logger verbosity
+(bin/lorikeet.rs:403-427) plus an indicatif progress-bar tree
+(lorikeet_engine.rs:992-1072).  Here: stdlib logging with the same -v/-q
+level mapping, a ProgressTree that writes per-genome status lines to
+stderr, StageTimer accumulation surfaced in the results dict, and a
+``torch.profiler`` trace when a profile directory is given.
 """
 from __future__ import annotations
 
 import contextlib
+import logging
 import os
+import sys
+import time
+
+log = logging.getLogger("lorikeet_tpu_torch")
+
+
+def set_log_level(verbosity: int = 0, quiet: bool = False):
+    """-v count -> level (bin/lorikeet.rs:403 set_log_level parity)."""
+    if quiet:
+        level = logging.ERROR
+    elif verbosity >= 2:
+        level = logging.DEBUG
+    elif verbosity == 1:
+        level = logging.INFO
+    else:
+        level = logging.WARNING
+    logging.basicConfig(
+        level=level, stream=sys.stderr,
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    log.setLevel(level)
+
+
+class StageTimer:
+    """Accumulates wall time per named stage; `timings()` returns seconds."""
+
+    def __init__(self):
+        self._acc = {}
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._acc[name] = self._acc.get(name, 0.0) + time.perf_counter() - t0
+
+    def timings(self) -> dict:
+        return {k: round(v, 3) for k, v in self._acc.items()}
+
+
+class ProgressTree:
+    """Per-genome status lines on stderr (indicatif-tree stand-in)."""
+
+    def __init__(self, total: int, enabled: bool = True):
+        self.total = total
+        self.done = 0
+        self.enabled = enabled and sys.stderr.isatty()
+
+    def update(self, genome: str, message: str):
+        if self.enabled:
+            print(f"[{self.done}/{self.total}] {genome}: {message}",
+                  file=sys.stderr, flush=True)
+        log.info("%s: %s", genome, message)
+
+    def finish_genome(self, genome: str):
+        self.done += 1
+        self.update(genome, "done")
 
 
 @contextlib.contextmanager
@@ -27,3 +88,10 @@ def maybe_profile(profile_dir: str | None):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+
+
+# ---- optional global hot-path stage accounting ----
+#: None = off (zero overhead beyond one attribute check); set to a dict to
+#: accumulate {stage: seconds} across _call_span / the pair-HMM dispatch
+#: (profile / smooth_extract / region_prep / pairhmm).
+GLOBAL_STAGES = None

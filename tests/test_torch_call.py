@@ -184,18 +184,59 @@ def test_start_engine_rejects_threads_up_front(fixture3k, tmp_path):
 def test_configure_devices(monkeypatch):
     import torch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # use_cuda=None means the card: no card is an error, never the host
     cfg = tengine.CallerConfig()
-    tproc._configure_devices(cfg)
-    assert cfg.use_cuda is False and tproc._cpu_only_backend(cfg)
+    assert not tproc._cpu_only_backend(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tproc._configure_devices(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tlk.compute_pair_likelihoods([object()], None)
     with pytest.raises(RuntimeError, match="CUDA"):
         tproc._configure_devices(tengine.CallerConfig(use_cuda=True))
+    host = tengine.CallerConfig(use_cuda=False)
+    tproc._configure_devices(host)
+    assert host.use_cuda is False and tproc._cpu_only_backend(host)
+    # the tests' switch: the plain version through the same path
+    monkeypatch.setattr(tlk, "PAIRHMM_DEVICE", "cpu")
+    cfg = tengine.CallerConfig()
+    tproc._configure_devices(cfg)
+    assert cfg.use_cuda is True and not tproc._cpu_only_backend(cfg)
     bad = tengine.CallerConfig(use_cuda=False)
     bad.devices = "4"
     with pytest.raises(ValueError, match="--devices"):
         tproc._configure_devices(bad)
     monkeypatch.setenv("LORIKEET_DEVICE_ACTIVITY", "1")
-    with pytest.raises(NotImplementedError):
-        tproc._device_activity(cfg)
+    assert tproc._device_activity(cfg) is True
+    assert tproc._activity_device(cfg) == "cpu"
+    assert tproc._activity_device(host) == "cpu"
+    monkeypatch.setattr(tlk, "PAIRHMM_DEVICE", "cuda")
+    assert tproc._activity_device(cfg) == "cuda"
+    monkeypatch.setenv("LORIKEET_DEVICE_ACTIVITY", "0")
+    assert tproc._device_activity(cfg) is False
+
+
+def test_device_activity_vcf_matches_jax(fixture3k, tmp_path, monkeypatch):
+    """The slice: `call` with the device activity chain (f32 torch ops, on
+    the CPU here) and the exact f64 pair-HMM writes the records the JAX
+    package writes under the same variable (its jitted chain on the CPU
+    backend), as tests/test_mesh_pipeline.py compares them."""
+    fasta, bams, truth = fixture3k
+    monkeypatch.setenv("LORIKEET_DEVICE_ACTIVITY", "1")
+    from lorikeet_tpu_torch.parallel import pipeline
+    calls = []
+    real = pipeline.smoothed_activity_device
+    monkeypatch.setattr(
+        pipeline, "smoothed_activity_device",
+        lambda *a, **k: calls.append(k["device"]) or real(*a, **k))
+    vj = jax_run_call(fasta, bams, str(tmp_path / "jax"),
+                      jengine.CallerConfig(use_pallas=False))
+    vt = tproc.run_call(fasta, bams, str(tmp_path / "torch"),
+                        tengine.CallerConfig(use_cuda=False))
+    assert calls and set(calls) == {"cpu"}
+    bj = [ln for ln in open(vj) if not ln.startswith("##")]
+    bt = [ln for ln in open(vt) if not ln.startswith("##")]
+    assert bj == bt
+    assert len(_sites(vt)) >= len(truth) - 1
 
 
 def test_device_sw_vcf_byte_identical(tmp_path, monkeypatch):

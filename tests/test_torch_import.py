@@ -1,14 +1,22 @@
-"""The port never imports jax.
+"""The port never imports jax, nor anything of the JAX package.
 
 Runs in subprocesses: the test process itself imports jax (conftest.py).
-Lazy imports inside functions (the JAX package has them in realign,
-progress, hosts and processing) only show when the code runs, so the CLI's
-`call` is run end to end and checked after the run too.
+Lazy imports inside functions only show when the code runs, so the CLI's
+`call` is run end to end and checked after the run too; and every source
+file of the port is searched for an import line that names the JAX package.
+
+The host modules are the port's own copies of the JAX package's (numpy,
+ctypes and C++).  Each copy is held to its original here: the same code
+once the package's name is put back, comments and docstrings aside.
 """
+import ast
 import os
 import pkgutil
+import re
 import subprocess
 import sys
+
+import pytest
 
 import lorikeet_tpu_torch
 
@@ -26,6 +34,14 @@ def _run(code, cwd=REPO, timeout=240):
                           capture_output=True, text=True, timeout=timeout)
 
 
+#: run in the subprocess after the port's code: nothing of jax, of the JAX
+#: package or of its benchmark script may have been imported
+NO_JAX_PACKAGE = (
+    "bad = [m for m in sys.modules if m.split('.')[0] in "
+    "('jax', 'jaxlib', 'lorikeet_tpu', 'bench_e2e')]\n"
+    "assert not bad, f'imported: {bad}'\n")
+
+
 def _port_modules():
     return sorted(m.name for m in pkgutil.walk_packages(
         lorikeet_tpu_torch.__path__, "lorikeet_tpu_torch."))
@@ -35,11 +51,14 @@ def test_every_port_module_imports_without_jax():
     mods = _port_modules()
     assert {"lorikeet_tpu_torch.cli", "lorikeet_tpu_torch.processing",
             "lorikeet_tpu_torch.ops.pairhmm_cuda",
-            "lorikeet_tpu_torch.ops.sw_cuda"} <= set(mods)
+            "lorikeet_tpu_torch.ops.sw_cuda",
+            "lorikeet_tpu_torch.parallel.pipeline",
+            "lorikeet_tpu_torch.parallel.dryrun",
+            "lorikeet_tpu_torch.native.graph_native",
+            "lorikeet_tpu_torch.testkit.dataset"} <= set(mods)
     res = _run("import importlib, sys\n"
                f"for m in {mods!r}: importlib.import_module(m)\n"
-               "assert 'jax' not in sys.modules, 'jax imported'\n"
-               "print('ok')")
+               + NO_JAX_PACKAGE + "print('ok')")
     assert res.returncode == 0 and "ok" in res.stdout, res.stderr
 
 
@@ -63,8 +82,7 @@ def test_cli_call_runs_without_jax(tmp_path):
     res = _run("import sys\n"
                "from lorikeet_tpu_torch.cli import main\n"
                f"rc = main({args!r})\n"
-               "assert 'jax' not in sys.modules, 'jax imported'\n"
-               "sys.exit(rc)", cwd=str(tmp_path))
+               + NO_JAX_PACKAGE + "sys.exit(rc)", cwd=str(tmp_path))
     assert res.returncode == 0, res.stderr
     vcf = tmp_path / "out" / "ref" / "ref.vcf"
     assert any(not line.startswith("#") for line in open(vcf))
@@ -78,7 +96,8 @@ def test_cli_call_runs_without_jax(tmp_path):
                 for line in res.stderr.splitlines()
                 if line.startswith("import time:")]
     assert "lorikeet_tpu_torch.processing" in imported
-    assert not [m for m in imported if m.split(".")[0] == "jax"]
+    assert not [m for m in imported
+                if m.split(".")[0] in ("jax", "lorikeet_tpu", "bench_e2e")]
     assert open(tmp_path / "out2" / "ref" / "ref.vcf").read() \
         == open(vcf).read()
 
@@ -96,3 +115,114 @@ def test_cli_refuses_unported_device_flags(tmp_path):
             cwd=str(tmp_path), env=env, capture_output=True, text=True,
             timeout=120)
         assert res.returncode == rc and msg in res.stderr, res.stderr
+
+
+def test_cli_call_without_card_is_an_error(tmp_path):
+    """`call` without --force-cpu on a machine with no card exits non-zero
+    and says that the card is missing: the default never runs on the host."""
+    res = _run(FIXTURE.format(tests=os.path.join(REPO, "tests"),
+                              tmp=str(tmp_path)))
+    assert res.returncode == 0, res.stderr
+    fasta, *bams = res.stdout.split()
+    env = _env()
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    res = subprocess.run(
+        [sys.executable, "-m", "lorikeet_tpu_torch.cli", "call", "-t", "1",
+         "-r", fasta, "-b", *bams, "-o", str(tmp_path / "out")],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True,
+        timeout=240)
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr and "--force-cpu" in res.stderr
+    assert not list(tmp_path.glob("out/*/*.vcf"))
+
+
+IMPORT_LINE = re.compile(
+    r"^\s*(from|import)\s+(lorikeet_tpu|jax|jaxlib|bench_e2e)(\.|\s|$)")
+
+
+def test_no_source_file_imports_the_jax_package():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.dirname(
+            lorikeet_tpu_torch.__file__)):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 60
+    bad = []
+    for path in files:
+        with open(path) as fh:
+            bad += [f"{os.path.relpath(path, REPO)}:{i}: {line.strip()}"
+                    for i, line in enumerate(fh, 1)
+                    if IMPORT_LINE.match(line)]
+    assert not bad, "\n".join(bad)
+
+
+PORT_DIR = os.path.dirname(lorikeet_tpu_torch.__file__)
+ORIGINAL_DIR = os.path.join(REPO, "lorikeet_tpu")
+#: files of the same name whose code differs on purpose: the torch
+#: counterparts of the JAX modules, the loader that builds into build/, and
+#: the modules of which the port keeps only the part without jax
+NOT_COPIES = {
+    "cli.py", "processing.py", "ops/pairhmm.py", "calling/engine.py",
+    "calling/likelihoods.py", "calling/realign.py", "parallel/hosts.py",
+    "parallel/pipeline.py", "parallel/sharding.py", "native/__init__.py",
+    "utils/progress.py",
+}
+
+
+def _shared_files():
+    found = []
+    for root, dirs, names in os.walk(PORT_DIR):
+        dirs[:] = [d for d in dirs if d not in ("build", "__pycache__")]
+        for name in names:
+            rel = os.path.relpath(os.path.join(root, name), PORT_DIR)
+            if name.endswith((".py", ".cpp")) and os.path.exists(
+                    os.path.join(ORIGINAL_DIR, rel)):
+                found.append(rel.replace(os.sep, "/"))
+    return sorted(found)
+
+
+def _python_code(path, rename):
+    """The file's syntax tree without docstrings (comments never reach
+    it), as text."""
+    with open(path) as fh:
+        text = fh.read()
+    if rename:
+        text = text.replace("lorikeet_tpu_torch", "lorikeet_tpu")
+    tree = ast.parse(text)
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and body \
+                and isinstance(body[0], ast.Expr) \
+                and isinstance(body[0].value, ast.Constant) \
+                and isinstance(body[0].value.value, str):
+            node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+def _cpp_code(path):
+    """The file's tokens between white space, comments removed."""
+    with open(path) as fh:
+        text = fh.read()
+    text = re.sub(r"/\*.*?\*/", "", text, flags=re.S)
+    return re.sub(r"//[^\n]*", "", text).split()
+
+
+def test_the_copies_are_the_files_expected():
+    shared = _shared_files()
+    assert NOT_COPIES <= set(shared)
+    copies = set(shared) - NOT_COPIES
+    assert len(copies) >= 55
+    assert {"native/pairhmm.cpp", "native/sw.cpp", "io/bai.py",
+            "models/af_calc.py", "strain/umap.py", "assembly/graph.py",
+            "testkit/simulate.py"} <= copies
+
+
+@pytest.mark.parametrize("rel", [f for f in _shared_files()
+                                 if f not in NOT_COPIES])
+def test_copied_host_module_equals_its_original(rel):
+    mine = os.path.join(PORT_DIR, rel)
+    theirs = os.path.join(ORIGINAL_DIR, rel)
+    if rel.endswith(".py"):
+        assert _python_code(mine, True) == _python_code(theirs, False)
+    else:
+        assert _cpp_code(mine) == _cpp_code(theirs)
