@@ -8,25 +8,29 @@ Phases, one JSON line each; any failure exits non-zero without the final
 
 1. probe   torch/CUDA versions, the card, its capability (9, 0), nvcc.
 2. build   compile csrc/pairhmm.cu (grouped and flat kernel) and csrc/sw.cu
-           for sm_90a from the checkout, in parallel, and print their ptxas
-           lines.
+           (warp and CTA form) for sm_90a from the checkout, in parallel,
+           and print their ptxas lines; a register spill fails the run.
 3. kernel  region-shaped pairs (64 regions x 6 haplotypes of 300-650 bp x
            40 reads of 100 bp, with N, IUPAC and unknown bytes and duplicate
            tuples) and a long-read batch (500 bp and 3 kb reads): the
            grouped kernel against its plain torch version on the card
-           (|d log10| <= 1e-4 on rows above -28), and after the f64
+           (|d log10| <= 1e-5 on rows above -28), and after the f64
            escalation against the native f64 kernel (<= 2e-3); median times
-           over >= 5 runs (CUDA events).
+           over >= 5 runs (CUDA events), and the host packer's (`pack_ms`).
 4. flat_kernel  the same two pair sets, one row per pair, through
            pairhmm_forward_flat on the card: the flat kernel against its
-           plain version and against the grouped kernel's results for the
-           same pairs (both <= 1e-4), timed like the grouped one.
+           plain version (<= 1e-5) and against the grouped kernel's results
+           for the same pairs (equal: both run the same sweep), timed like
+           the grouped one.
 5. sw_kernel  the Smith-Waterman kernel against its plain torch version and
-           the native aligner, exactly, on three batches: `region` (64
+           the native aligner, exactly, pair by pair: `region` (64
            haplotypes of 300-650 bp x 40 reads of 100 bp with 1-3
-           mismatches and a 1-6 bp indel), `strategies` (every overhang
-           strategy x parameter set) and `long` (1-3 kb reads against
-           haplotypes near the cap, and refs above it on the scalar route).
+           mismatches and a 1-6 bp indel; warp form), `strategies` (every
+           overhang strategy x parameter set), `mixed` (alternates of 1, 31,
+           32, 33, 127, 128, 129, 511, 512 and 1,500 bases under every
+           strategy: both forms, two launches) and `long` (1-3 kb reads
+           against haplotypes near the cap on the CTA form, and refs above
+           the cap on the scalar route).
 6. call    `lorikeet_tpu_torch.cli call -t 1` on a simulated 1 Mbp x 2
            samples x 30x genome, in turns after a short warm-up run: a card
            leg with the SW on the card (--pallas-sw), the exact f64 host
@@ -44,7 +48,8 @@ Phases, one JSON line each; any failure exits non-zero without the final
            same batch one row per pair through the flat kernel
            (flat_kernel line `main_path`).
 8. sw_main_path  the largest realignment SW batch of the first card leg,
-           replayed: kernel, plain version and native aligner, all timed.
+           replayed: kernel, plain version and native aligner, all timed,
+           and the whole align_batch_cuda call (`call_ms`).
 9. region_batch  region_batch_step at world size 1 on the flattened
            main-path batch with sample ids and depths from the seed: lk
            against the f64 host kernel after the escalation rule (<= 2e-3),
@@ -68,11 +73,12 @@ import contextlib
 import io
 import json
 import os
+import re
 import sys
 import tempfile
 import time
 
-KERNEL_TOL = 1e-4        # kernel vs plain torch version, same card, f32
+KERNEL_TOL = 1e-5        # kernel vs plain torch version, same card, f32
 EXACT_TOL = 2e-3         # after f64 escalation vs the native f64 kernel
 QUAL_TOL = 0.1           # GPU leg vs f64 leg (docs/benchmarks.md:292-298)
 MIN_RECALL = 0.99
@@ -141,6 +147,18 @@ def cuda_median_ms(fn, runs: int = TIMED_RUNS) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def host_median_ms(fn, runs: int = TIMED_RUNS) -> float:
+    """Median of ``runs`` host-clock timings of fn() after one warm-up; fn
+    leaves no work on the card behind."""
+    fn()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
 
 
 def bound(ops: float, peak_ops_s: float, nbytes: int) -> dict:
@@ -254,7 +272,9 @@ def kernel_phase(name, pairs, dev, timed: bool) -> dict:
         t0 = time.perf_counter()
         pc.pairhmm_forward_grouped(pairs, dev)
         forward_ms = (time.perf_counter() - t0) * 1e3
+        pack_ms = host_median_ms(lambda: pc.pack_grouped_inputs(pairs))
         out.update(ms=ms, plain_ms=plain_ms, forward_ms=forward_ms,
+                   pack_ms=pack_ms,
                    gcups=out["cells"] / (ms * 1e-3) / 1e9,
                    plain_gcups=out["cells"] / (plain_ms * 1e-3) / 1e9)
     emit("kernel", batch=name, **out)
@@ -291,8 +311,9 @@ def flat_kernel_phase(name, pairs, dev, timed: bool) -> dict:
     check(err <= KERNEL_TOL,
           f"{name}: flat kernel vs plain {err} > {KERNEL_TOL}")
     err_grouped = float(np.abs(got[keep] - grouped[keep]).max())
-    check(err_grouped <= KERNEL_TOL,
-          f"{name}: flat vs grouped kernel {err_grouped} > {KERNEL_TOL}")
+    check(err_grouped == 0.0,
+          f"{name}: flat vs grouped kernel differ by {err_grouped}: both "
+          "run the same sweep")
     cells = int((a["read_lens"].astype(np.int64) * a["hap_lens"]).sum())
     out = {"pairs": len(pairs), "rpad": int(t["quals"].shape[1]),
            "hpad": int(t["haps"].shape[1]), "cells": cells,
@@ -475,6 +496,27 @@ def sw_strategy_batches(rng, n=64):
     return out
 
 
+def sw_mixed_pairs(rng):
+    """Alternates on both sides of every strip width of the warp form and
+    of its cap, so that one batch runs both forms: each against a ref a
+    little longer than itself and against a 40-base ref."""
+    import numpy as np
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    pairs = []
+    for alt_len in (1, 31, 32, 33, 127, 128, 129, 511, 512, 1500):
+        hap = bases[rng.integers(0, 4, alt_len + int(rng.integers(0, 200)))]
+        alt = hap[:alt_len].copy()
+        if alt_len >= 8:          # a 3-base deletion, the length made up
+            k = int(rng.integers(1, alt_len - 3))
+            alt = np.concatenate([alt[:k], alt[k + 3:],
+                                  bases[rng.integers(0, 4, 3)]])
+        alt[rng.integers(0, alt_len, 2)] = ord("G")
+        alt[0] = ord("N")         # never an exact substring: no shortcut
+        pairs.append((hap.tobytes(), alt.tobytes()))
+        pairs.append((hap[:40].tobytes(), alt.tobytes()))
+    return pairs
+
+
 def sw_long_pairs(rng):
     """1-3 kb reads against haplotypes near the kernel's cap, then two refs
     above the cap (the scalar route)."""
@@ -500,7 +542,6 @@ def sw_phase(name, pairs, params, strategy, dev, timed: bool,
     from lorikeet_tpu_torch.ops import sw_cuda as sc
 
     counts = dict(sc.SW_COUNTS)
-    launches = sc.SW_LAUNCHES
     t0 = time.perf_counter()
     routed = sc.align_batch_cuda(pairs, params, strategy, dev)
     batch_ms = (time.perf_counter() - t0) * 1e3
@@ -517,13 +558,17 @@ def sw_phase(name, pairs, params, strategy, dev, timed: bool,
            "params": list(params.__dict__.values()), "routes": routes,
            "batch_ms": batch_ms, "native_ms": native_ms}
     if not batched:
-        emit(phase, batch=name, **out)
-        return out
+        emit(phase, batch=name, forms={"warp": 0, "cta": 0}, **out)
+        return {**out, "forms": {"warp": 0, "cta": 0}}
     t = sc.to_tensors(sc.pack_pairs(batched), dev)
+    forms = {"warp": t["n_warp"], "cta": len(batched) - t["n_warp"]}
+    launches = sc.SW_LAUNCHES
     got = sc.sw_align(t, params, strategy)
     if dev.type == "cuda":
         torch.cuda.synchronize()
-        check(sc.SW_LAUNCHES > launches, f"{name}: kernel launch not counted")
+        check(sc.SW_LAUNCHES - launches == sum(n > 0 for n in forms.values()),
+              f"{name}: {sc.SW_LAUNCHES - launches} launches counted for "
+              f"forms {forms}")
     t0 = time.perf_counter()
     plain = sc.sw_align_torch(t, params, strategy)
     plain_once_ms = (time.perf_counter() - t0) * 1e3
@@ -539,7 +584,8 @@ def sw_phase(name, pairs, params, strategy, dev, timed: bool,
     # (length, offset) table.  The backtrack slab is the kernel's own.
     moved = tensor_bytes(t["seqs"], t["meta"]) + 8 * len(batched) \
         + 4 * sum(len(c) for c, _ in got)
-    out.update(batched=len(batched), cells=cells, rows_max=t["rows_max"],
+    out.update(batched=len(batched), forms=forms, cells=cells,
+               rows_max=t["rows_max"],
                mismatches=vs_plain + vs_native,
                plain_once_ms=plain_once_ms,
                **bound(SW_OPS_PER_CELL * cells, PEAK_I32_OPS_S, moved))
@@ -552,8 +598,12 @@ def sw_phase(name, pairs, params, strategy, dev, timed: bool,
             t0 = time.perf_counter()
             [align(r, a, params, strategy) for r, a in batched]
             native.append((time.perf_counter() - t0) * 1e3)
+        # the whole call as the main path makes it: routing, packing, the
+        # copy in, the launch, the copy back and decoding
+        call_ms = host_median_ms(
+            lambda: sc.align_batch_cuda(pairs, params, strategy, dev))
         out.update(ms=ms, gcups=cells / (ms * 1e-3) / 1e9, plain_ms=plain_ms,
-                   native_batched_ms=sorted(native)[1])
+                   native_batched_ms=sorted(native)[1], call_ms=call_ms)
     emit(phase, batch=name, **out)
     return out
 
@@ -571,9 +621,19 @@ def sw_kernel_phase(rng, dev, timed=True) -> list:
     for strategy, p, pairs in sw_strategy_batches(rng):
         out.append(sw_phase(f"strategy{strategy}", pairs, p, strategy, dev,
                             timed=False))
+    mixed = sw_mixed_pairs(rng)
+    for strategy in range(4):
+        m = sw_phase(f"mixed{strategy}", mixed, best, strategy, dev,
+                     timed=False)
+        check(m["forms"] == {"warp": 16, "cta": 4} and
+              m["routes"]["shortcut"] == 0, f"mixed{strategy}: forms "
+              f"{m['forms']}, routes {m['routes']}")
+        out.append(m)
     long_ = sw_phase("long", sw_long_pairs(rng), best, soft, dev, timed=False)
-    check(long_["routes"] == {"device": 3, "shortcut": 0, "scalar_long": 2},
-          f"long: routes {long_['routes']}")
+    check(long_["routes"] == {"device": 3, "shortcut": 0, "scalar_long": 2}
+          and long_["forms"] == {"warp": 0, "cta": 3},
+          f"long: routes {long_['routes']}, forms {long_['forms']}")
+    check(region["forms"]["cta"] == 0, f"region: forms {region['forms']}")
     return out + [long_]
 
 
@@ -813,8 +873,9 @@ def device_busy(trace_path: str, wall_s: float) -> dict:
                 lambda e: e.get("cat") == "kernel"
                 and "grouped_kernel" in e.get("name", "")) if seen else None,
             "sw_kernel_s": seconds(
-                lambda e: e.get("cat") == "kernel"
-                and "sw_kernel" in e.get("name", "")) if seen else None,
+                lambda e: e.get("cat") == "kernel" and any(
+                    k in e.get("name", "") for k in
+                    ("sw_warp_kernel", "sw_kernel"))) if seen else None,
             "copy_s": copy_s if seen else None,
             "idle_share": 1.0 - (kernel_s + copy_s) / wall_s
             if seen else None}
@@ -843,6 +904,9 @@ def main() -> int:
             name, "").splitlines() if "registers" in line or "spill" in line]
         emit("build", kernel=name, seconds=_build.BUILD_SECONDS[name],
              ptxas=ptxas)
+        spills = [line for line in ptxas if any(int(n) for n in re.findall(
+            r"(\d+) bytes spill (?:stores|loads)", line))]
+        check(not spills, f"{name}: ptxas reports register spills: {spills}")
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)

@@ -28,25 +28,39 @@
 // The recurrence needs 12 f32 multiplies and adds per cell: M = prior *
 // (Pm * mm + Ps * (1 - gg)) 4, I = am * mi + ai * gg 3, D = M * md + D * gg
 // 3, the I + D that the next M reads 1, and the rescaling (five multiplies,
-// three maxima) once in 8 diagonals 1.  `sweep` below issues about 17: it
-// recomputes mm, 1 - gg, 1 - eq and eq / 3 in every cell although they
-// depend on the read row alone, and beside them about 6 integer index,
-// compare and AND operations.  So it is bound by the FP32 pipes and by the
-// serial chain of diagonals inside each pair, not by HBM bytes.
+// three maxima) once in 8 diagonals 1.  So it is bound by the FP32 pipes and
+// by the serial chain of diagonals inside each pair, not by HBM bytes: what
+// counts is how few instructions a cell issues beyond those 12, and that
+// every SM has enough independent warps to hide the chain.
 //
-// Design.  One CTA (4 warps) per table block, the haplotype's base bits in
-// shared memory; each warp sweeps one read of the 32-read tile at a time.
-// Lane l holds a contiguous strip of K = Rpad/32 read rows, so row i-1 sits
-// in the same lane except at the strip head, where __shfl_up_sync fetches
-// it (3 shuffles per diagonal).  Row i on diagonal d reads hap_s[d - i - 1]
-// directly.  The renormalisation max is a __shfl_xor_sync reduction.  Reads
-// up to 511 bases keep their strip in registers (K = 4, 8, 16 by template);
-// longer reads keep it in a global scratch slab per resident warp (L1/L2
-// cached), a strip of ceil((R+1)/32) rows sized to each read, with a fixed
-// grid of CTAs striding over the blocks, so any read length runs on the
-// device.  Pad rows (read length 0) are skipped.  A pair
-// stops at the first multiple of 8 diagonals >= R + H: the TPU kernel's
-// further padded diagonals only rescale by exact powers of two.
+// Design.  One warp sweeps one (read, haplotype) pair.  Lane l holds a
+// contiguous strip of K = Rpad/32 read rows, so row i-1 sits in the same
+// lane except at the strip head, where __shfl_up_sync fetches it.  What the
+// read row alone fixes is computed once in the prologue and kept in the
+// strip: 1 - eps, eps / 3, mm = 1 - min(1, eps_i + eps_d) and 1 - eps_g
+// (register strips; ptxas gives the 16-row strip 211 registers with them
+// and without, no spill; the scratch strips derive them per cell instead,
+// to save their memory traffic).  Row i on diagonal d meets haplotype base
+// d - i - 1: each lane keeps its rows' haplotype bits in the strip as a
+// shift register that moves one row a diagonal, takes its head from the
+// lane above (a fourth shuffle) and is fed by lane 0 with one word of the
+// staged haplotype, so no lane reads shared memory with a stride.  The
+// renormalisation max is a __shfl_xor_sync reduction.  Reads up to 511
+// bases keep their strip in registers (K = 4, 8, 16 by template); longer
+// reads keep it in a global scratch slab per resident warp (L1/L2 cached),
+// a strip of ceil((R+1)/32) rows sized to each read, so any read length
+// runs on the device.  A pair stops at the first multiple of 8 diagonals
+// >= R + H: the TPU kernel's further padded diagonals only rescale by exact
+// powers of two.
+//
+// The grouped kernel: a CTA of 8 warps takes 8 consecutive read rows of one
+// table block (grid = 4 CTAs per block) and stages the block's haplotype
+// bits once in shared memory; each warp sweeps its one row and a pad row
+// (read length 0) ends at once.  A block is thus 32 independent warps, not
+// 4 warps working through 8 reads each: the main path's ~500 blocks become
+// ~2,000 CTAs that fill the 132 SMs several times over and leave no long
+// tail.  With scratch strips the grid is capped (scratch is sized by
+// resident warps) and CTAs stride over the (block, quarter) list.
 //
 // The flat kernel changes only the work distribution: one warp per pair,
 // and each warp stages its own haplotype's base bits in its own slice of
@@ -59,10 +73,11 @@
 // scratch instead, so no pair leaves the device for its length.  The grid
 // is one warp slot per pair, capped (with a stride loop) where scratch is
 // sized per resident warp: scratch read strips, global haplotype slices.
-// Not done yet (later work): TMA/cp.async staging of the inputs, warp
-// specialisation, a shift register instead of the strided hap_s loads.
+// Not done yet (later work): TMA/cp.async staging of the inputs, two pairs
+// interleaved in one warp to hide the chain's latency.
 
 #include <cfloat>
+#include <climits>
 #include <cstddef>
 #include <cstdint>
 
@@ -71,11 +86,15 @@
 namespace {
 
 constexpr int kTile = 32;      // read rows per table block (GROUP_BLOCK_B)
-constexpr int kWarps = 4;      // warps per CTA
+constexpr int kWarps = 4;      // warps per CTA, flat kernel
 constexpr int kThreads = kWarps * 32;
+constexpr int kRowWarps = 8;   // warps (= read rows) per CTA, grouped kernel
+constexpr int kRowThreads = kRowWarps * 32;
+constexpr int kQuarters = kTile / kRowWarps;   // CTAs per table block
 constexpr int kGroup = 8;      // diagonals per renormalisation (GROUP)
 constexpr int kMaxRegK = 16;   // longest register strip (Rpad 512)
-constexpr int kLongCtas = 264; // CTAs of the scratch-strip (long read) grid
+constexpr int kLongCtas = 264; // CTAs of a flat grid whose scratch is per warp
+constexpr int kLongRowCtas = 132;  // the same for the grouped kernel's CTAs
 constexpr unsigned kFull = 0xffffffffu;
 
 constexpr float kLn10Over10 = -0x1.d791c6p-3f;  // f32(-ln(10) / 10)
@@ -83,16 +102,27 @@ constexpr float kThird = 0x1.555556p-2f;        // f32(1 / TRISTATE_CORRECTION)
 constexpr float kLog10Of2 = 0x1.344136p-2f;     // f32(log10(2))
 
 // per read row: the phred-derived coefficients, the one-hot read base bits
-// (stored as float bits), and the DP state: M/I/D on diagonal d-1, and the
-// row ABOVE's M and I+D on diagonal d-2 (the M recurrence's inputs)
-enum Field { kEq, kMi, kMd, kGg, kRb, kM, kI, kD, kPm, kPs, kNumFields };
+// and the haplotype base bits the row meets on this diagonal (both stored
+// as float bits), and the DP state: M/I/D on diagonal d-1, and the row
+// ABOVE's M and I+D on diagonal d-2 (the M recurrence's inputs).  Then
+// either eps (kEq), from which a cell derives its four constants (scratch
+// strips), or the constants themselves (register strips).
+enum Field { kMi, kMd, kGg, kRb, kHb, kM, kI, kD, kPm, kPs, kEq,
+             kPmatch = kEq, kPmis, kMm, kOmg, kNumRegFields,
+             kNumFields = kEq + 1 };
+
+// CTAs of the grouped kernel an SM must hold: caps the registers at 80 / 128
+// / 255 for 4- / 8- / 16-row strips, which each build fits without a spill
+// (left to itself ptxas stops at 64 for the 4-row strip and spills)
+template <int KC>
+constexpr int kMinCtas = KC == 16 ? 1 : (KC == 8 ? 2 : 3);
 
 // Strip of K read rows held by one lane.  KC > 0: in registers (every loop
 // over k is unrolled, so v[][] never leaves the register file).  KC == 0:
 // in global scratch, field-major so that a warp's accesses coalesce.
 template <int KC>
 struct Strip {
-  float v[kNumFields][KC];
+  float v[kNumRegFields][KC];
   __device__ Strip(float*, int, int) {}
   __device__ float& at(int f, int k) { return v[f][k]; }
   __device__ float get(int f, int k) const {  // runtime k: select, no spill
@@ -132,11 +162,23 @@ __device__ float sweep(Strip<KC>& st, const int K, const int lane,
   for (int k = 0; k < KK; ++k) {
     const int i = lane * KK + k;
     const bool ok = i >= 1 && i <= R;
-    st.at(kEq, k) = ok ? expf(static_cast<float>(q[i]) * kLn10Over10) : 0.f;
-    st.at(kMi, k) = ok ? expf(static_cast<float>(iq[i]) * kLn10Over10) : 0.f;
-    st.at(kMd, k) = ok ? expf(static_cast<float>(dq[i]) * kLn10Over10) : 0.f;
-    st.at(kGg, k) = ok ? expf(static_cast<float>(gq[i]) * kLn10Over10) : 0.f;
+    const float eq = ok ? expf(static_cast<float>(q[i]) * kLn10Over10) : 0.f;
+    const float mi = ok ? expf(static_cast<float>(iq[i]) * kLn10Over10) : 0.f;
+    const float md = ok ? expf(static_cast<float>(dq[i]) * kLn10Over10) : 0.f;
+    const float gg = ok ? expf(static_cast<float>(gq[i]) * kLn10Over10) : 0.f;
+    st.at(kMi, k) = mi;
+    st.at(kMd, k) = md;
+    st.at(kGg, k) = gg;
+    if constexpr (KC > 0) {
+      st.at(kPmatch, k) = 1.f - eq;
+      st.at(kPmis, k) = eq * kThird;
+      st.at(kMm, k) = 1.f - fminf(1.f, mi + md);
+      st.at(kOmg, k) = 1.f - gg;
+    } else {
+      st.at(kEq, k) = eq;
+    }
     st.at(kRb, k) = __int_as_float(ok ? lut[rd[i]] : 0);
+    st.at(kHb, k) = __int_as_float(0);
     st.at(kM, k) = 0.f;
     st.at(kI, k) = 0.f;
     st.at(kD, k) = 0.f;
@@ -152,10 +194,14 @@ __device__ float sweep(Strip<KC>& st, const int K, const int lane,
   const int ndiag = (R + H + kGroup - 1) / kGroup * kGroup;
 
   for (int d = 1; d <= ndiag; ++d) {
-    // the row above each strip head, on diagonal d-1
+    // the row above each strip head, on diagonal d-1, and the haplotype
+    // base it met there; lane 0's head is the boundary row, which meets
+    // base d - 1
     const float up_m = __shfl_up_sync(kFull, st.at(kM, KK - 1), 1);
     const float up_i = __shfl_up_sync(kFull, st.at(kI, KK - 1), 1);
     const float up_d = __shfl_up_sync(kFull, st.at(kD, KK - 1), 1);
+    float up_hb = __shfl_up_sync(kFull, st.at(kHb, KK - 1), 1);
+    if (lane == 0) up_hb = __int_as_float(d <= H ? hap_s[d - 1] : 0);
     // bottom-up, so row k-1 still holds diagonal d-1 when row k reads it
 #pragma unroll
     for (int k = KK - 1; k >= 0; --k) {
@@ -163,19 +209,29 @@ __device__ float sweep(Strip<KC>& st, const int K, const int lane,
       const float am = k > 0 ? st.at(kM, ka) : up_m;
       const float ai = k > 0 ? st.at(kI, ka) : up_i;
       const float ad = k > 0 ? st.at(kD, ka) : up_d;
-      const int i = lane * KK + k;
-      const int hj = d - i - 1;                    // haplotype base index
-      const int hb = static_cast<unsigned>(hj) < static_cast<unsigned>(H)
-                         ? hap_s[hj] : 0;
-      const float eq = st.at(kEq, k);
+      const float hb = k > 0 ? st.at(kHb, ka) : up_hb;
+      st.at(kHb, k) = hb;
       const float mi = st.at(kMi, k);
       const float md = st.at(kMd, k);
       const float gg = st.at(kGg, k);
+      float pmatch, pmis, mm, omg;
+      if constexpr (KC > 0) {
+        pmatch = st.at(kPmatch, k);
+        pmis = st.at(kPmis, k);
+        mm = st.at(kMm, k);
+        omg = st.at(kOmg, k);
+      } else {
+        const float eq = st.at(kEq, k);
+        pmatch = 1.f - eq;
+        pmis = eq * kThird;
+        mm = 1.f - fminf(1.f, mi + md);
+        omg = 1.f - gg;
+      }
       const float prior =
-          (__float_as_int(st.at(kRb, k)) & hb) ? 1.f - eq : eq * kThird;
-      const float mm = 1.f - fminf(1.f, mi + md);
+          (__float_as_int(st.at(kRb, k)) & __float_as_int(hb)) ? pmatch
+                                                                 : pmis;
       const float m_new =
-          prior * (st.at(kPm, k) * mm + st.at(kPs, k) * (1.f - gg));
+          prior * (st.at(kPm, k) * mm + st.at(kPs, k) * omg);
       const float i_new = am * mi + ai * gg;
       const float d_new = st.at(kM, k) * md + st.at(kD, k) * gg;
       st.at(kPm, k) = am;
@@ -224,7 +280,7 @@ __device__ float sweep(Strip<KC>& st, const int K, const int lane,
 }
 
 template <int KC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kRowThreads, kMinCtas<KC>)
 grouped_kernel(const int* __restrict__ tile_tab,
                const int* __restrict__ hap_tab,
                const int* __restrict__ hap_lens,
@@ -245,33 +301,36 @@ grouped_kernel(const int* __restrict__ tile_tab,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   float* slab = KC > 0 ? nullptr
-      : scratch + (static_cast<size_t>(blockIdx.x) * kWarps + warp)
+      : scratch + (static_cast<size_t>(blockIdx.x) * kRowWarps + warp)
                   * static_cast<size_t>(rpad) * kNumFields;
-  for (int b = blockIdx.x; b < nblocks; b += gridDim.x) {
+  // unit u: rows (u % 4) * 8 .. + 7 of table block u / 4; every warp of the
+  // CTA runs the same units, so the barriers below are met by all
+  for (int u = blockIdx.x; u < nblocks * kQuarters; u += gridDim.x) {
+    const int b = u / kQuarters;
+    const int r = (u % kQuarters) * kRowWarps + warp;
     const int h = hap_tab[b];
     const int H = hap_lens[h];
-    __syncthreads();          // lut loaded / previous block done with hap_s
+    __syncthreads();          // lut loaded / previous unit done with hap_s
     for (int t = threadIdx.x; t < H; t += blockDim.x)
       hap_s[t] = lut[haps[static_cast<size_t>(h) * hpad + t]];
     __syncthreads();
-    for (int r = warp; r < kTile; r += kWarps) {
-      const int row = tile_tab[b] * kTile + r;
-      const int R = read_lens[row];
-      if (R == 0) continue;                       // pad row of a short tile
-      // a scratch strip covers rows 0..R of this read only, so a short
-      // read in a batch padded for a long one does not sweep the padding
-      const int K = (R + 32) / 32;
-      Strip<KC> st(slab, K, lane);
-      const size_t o = static_cast<size_t>(row) * rpad;
-      const float v = sweep<KC>(st, K, lane, R, H, hap_s, lut, quals + o,
-                                ins_q + o, del_q + o, gcp_q + o, read_u8 + o);
-      if (lane == 0) out[static_cast<size_t>(b) * kTile + r] = v;
-    }
+    const int row = tile_tab[b] * kTile + r;
+    const int R = read_lens[row];
+    if (R == 0) continue;                         // pad row of a short tile
+    // a scratch strip covers rows 0..R of this read only, so a short
+    // read in a batch padded for a long one does not sweep the padding
+    const int K = (R + 32) / 32;
+    Strip<KC> st(slab, K, lane);
+    const size_t o = static_cast<size_t>(row) * rpad;
+    const float v = sweep<KC>(st, K, lane, R, H, hap_s, lut, quals + o,
+                              ins_q + o, del_q + o, gcp_q + o, read_u8 + o);
+    if (lane == 0) out[static_cast<size_t>(b) * kTile + r] = v;
   }
 }
 
 int long_grid(int nblocks) {
-  return nblocks < kLongCtas ? nblocks : kLongCtas;
+  const long long units = static_cast<long long>(nblocks) * kQuarters;
+  return units < kLongRowCtas ? static_cast<int>(units) : kLongRowCtas;
 }
 
 template <int KC>
@@ -287,7 +346,7 @@ int launch(int grid, size_t smem, cudaStream_t stream,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  grouped_kernel<KC><<<grid, kThreads, smem, stream>>>(
+  grouped_kernel<KC><<<grid, kRowThreads, smem, stream>>>(
       static_cast<const int*>(tile_tab), static_cast<const int*>(hap_tab),
       static_cast<const int*>(hap_lens), static_cast<const uint8_t*>(quals),
       static_cast<const uint8_t*>(ins_q), static_cast<const uint8_t*>(del_q),
@@ -405,7 +464,7 @@ extern "C" {
 // strips fit in registers).
 long long pairhmm_scratch_floats(int nblocks, int rpad) {
   if (rpad / 32 <= kMaxRegK) return 0;
-  return static_cast<long long>(long_grid(nblocks)) * kWarps * rpad
+  return static_cast<long long>(long_grid(nblocks)) * kRowWarps * rpad
          * kNumFields;
 }
 
@@ -431,9 +490,12 @@ int pairhmm_grouped_launch(const void* tile_tab, const void* hap_tab,
 #define LORIKEET_ARGS tile_tab, hap_tab, hap_lens, quals, ins_q, del_q, \
     gcp_q, read_u8, read_lens, haps, base_bits, scratch, nblocks, rpad, \
     hpad, out
-  if (K <= 4) return launch<4>(nblocks, smem, s, LORIKEET_ARGS);
-  if (K <= 8) return launch<8>(nblocks, smem, s, LORIKEET_ARGS);
-  if (K <= kMaxRegK) return launch<kMaxRegK>(nblocks, smem, s, LORIKEET_ARGS);
+  if (nblocks > INT32_MAX / kQuarters)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int units = nblocks * kQuarters;          // one CTA each
+  if (K <= 4) return launch<4>(units, smem, s, LORIKEET_ARGS);
+  if (K <= 8) return launch<8>(units, smem, s, LORIKEET_ARGS);
+  if (K <= kMaxRegK) return launch<kMaxRegK>(units, smem, s, LORIKEET_ARGS);
   return launch<0>(long_grid(nblocks), smem, s, LORIKEET_ARGS);
 #undef LORIKEET_ARGS
 }

@@ -14,6 +14,11 @@ bit-identical to lorikeet_tpu.ops.smith_waterman.align, the native aligner.
 - :func:`sw_align` runs the hand-written kernel (``csrc/sw.cu``) for tensors
   on a CUDA device and the plain version only for tensors on the CPU.  It
   never falls back: a failed build or launch raises.
+- The kernel has two forms, chosen per pair by :func:`sw_form`: a warp per
+  pair for alternates up to :data:`WARP_MAX_ALT` bases (every realignment
+  pair of short reads) and a CTA per pair for longer ones.
+  :func:`pack_pairs` orders the table by form, so a mixed batch is two
+  launches, and every result comes back in the caller's order.
 """
 from __future__ import annotations
 
@@ -31,6 +36,8 @@ from lorikeet_tpu_torch.ops.smith_waterman import (
 #: memory each must fit the 232,448 bytes a CTA may use on an H100
 #: (8192 rows take 229,376).  The TPU kernel's cap was 2047, a VMEM bound.
 MAX_REF_LEN = 8191
+#: longest alt of the warp form: 32 lanes of at most 16 columns, less one
+WARP_MAX_ALT = 511
 #: torch device the batched path runs on.  Tests set it to "cpu" to run the
 #: kernel's plain torch version through the same path.
 SW_DEVICE = "cuda"
@@ -40,9 +47,9 @@ SW_COUNTS = {"device": 0, "shortcut": 0, "scalar_long": 0}
 #: kernel launches made by sw_align in this process
 SW_LAUNCHES = 0
 
-#: int32 of kernel scratch per launch (backtrack slabs); larger batches are
-#: split into several launches
-SCRATCH_BUDGET = 1 << 28
+#: bytes of kernel scratch per chunk (backtrack slabs); larger batches are
+#: split into several chunks
+SCRATCH_BUDGET = 1 << 30
 #: bytes of the plain version's diagonal-major backtrack tensor per chunk
 PLAIN_BT_BUDGET = 1 << 29
 
@@ -51,15 +58,39 @@ _MIN32 = -(2 ** 31)
 _OPS = ("M", "I", "D")   # traceback states 0, 1, 2
 
 
-def _scratch_len(ref_len, alt_len):
-    """int32 of backtrack slab plus last column and last row per pair."""
-    return (ref_len + 1) * (alt_len + 1) + (ref_len + 1) + (alt_len + 1)
+def sw_form(ref_len, alt_len):
+    """The kernel form a pair takes: "warp" (one warp per pair, the alt's
+    columns in registers) or "cta" (one CTA per pair).  Works on ints and on
+    numpy arrays (then an array of the two words)."""
+    del ref_len                 # both forms take every ref up to the cap
+    return np.where(np.asarray(alt_len) <= WARP_MAX_ALT, "warp", "cta")[()]
+
+
+def warp_strip(alt_len):
+    """Alt columns a lane holds in the warp form: 4, 8 or 16."""
+    alt_len = np.asarray(alt_len)
+    return np.where(alt_len <= 128, 4, np.where(alt_len <= 256, 8, 16))[()]
+
+
+def _scratch_bytes(ref_len, alt_len):
+    """Bytes of kernel scratch per pair, a multiple of 32.  Warp form: the
+    int16 backtrack slab [steps][32 lanes][K] with steps = ref_len +
+    (alt_len - 1) // K.  CTA form: the int32 backtrack slab plus the last
+    column and last row."""
+    ref_len, alt_len = np.asarray(ref_len), np.asarray(alt_len)
+    k = warp_strip(alt_len)
+    warp = (ref_len + (alt_len - 1) // k) * 64 * k
+    cta = -(-4 * ((ref_len + 1) * (alt_len + 1) + ref_len + alt_len + 2)
+            // 32) * 32
+    return np.where(sw_form(ref_len, alt_len) == "warp", warp, cta)[()]
 
 
 def pack_pairs(pairs) -> dict:
     """(ref, alt) byte pairs as one byte array and an int64 table
-    [B, 6] of ref_off, ref_len, alt_off, alt_len, scratch_off, cigar_off;
-    plus the host sizes the kernel wrapper allocates from."""
+    [B, 6] of ref_off, ref_len, alt_off, alt_len, scratch_off (bytes),
+    cigar_off, with the warp-form pairs first: row p is pairs[order[p]] and
+    the first ``n_warp`` rows take the warp form.  Plus the host sizes the
+    kernel wrapper allocates and launches from."""
     refs = [_to_bytes(r) for r, _ in pairs]
     alts = [_to_bytes(a) for _, a in pairs]
     rl = np.fromiter(map(len, refs), np.int64, len(refs))
@@ -68,22 +99,51 @@ def pack_pairs(pairs) -> dict:
         raise ValueError("sw: empty batch")
     if rl.min() <= 0 or al.min() <= 0:
         raise ValueError("sw: non-empty sequences required")
+    is_cta = sw_form(rl, al) == "cta"
+    order = np.argsort(is_cta, kind="stable")
+    rl, al = rl[order], al[order]
+    n_warp = int(len(order) - is_cta.sum())
     ref_off = np.concatenate([[0], np.cumsum(rl + al)[:-1]])
     alt_off = ref_off + rl
-    scratch = _scratch_len(rl, al)
+    scratch = _scratch_bytes(rl, al)
     cig = rl + al + 4
     meta = np.stack([ref_off, rl, alt_off, al,
                      np.cumsum(scratch) - scratch, np.cumsum(cig) - cig], 1)
-    seqs = np.frombuffer(bytearray().join(s for pair in zip(refs, alts)
-                                          for s in pair), np.uint8)
-    return {"seqs": seqs, "meta": meta, "rows_max": int(rl.max()) + 1,
+    seqs = np.frombuffer(bytearray().join(
+        s for k in order.tolist() for s in (refs[k], alts[k])), np.uint8)
+    return {"seqs": seqs, "meta": meta, "order": order, "n_warp": n_warp,
+            "rows_max": int(rl.max()) + 1,
+            # (ref_len + 1, alt_len) maxima of each form's rows
+            "warp_max": (int(rl[:n_warp].max(initial=0)) + 1,
+                         int(al[:n_warp].max(initial=0))),
+            "cta_max": (int(rl[n_warp:].max(initial=0)) + 1,
+                        int(al[n_warp:].max(initial=0))),
             "scratch_len": int(scratch.sum()), "cigar_len": int(cig.sum())}
 
 
 def to_tensors(arrays: dict, device) -> dict:
-    """The packed arrays on ``device`` (host sizes stay ints)."""
-    return {k: torch.from_numpy(v).to(device) if isinstance(v, np.ndarray)
-            else v for k, v in arrays.items()}
+    """The packed arrays on ``device`` (host sizes stay as they are): the
+    table and the sequences cross in one buffer and one copy, and ``meta``
+    and ``seqs`` are views of it.  ``meta_host`` keeps the host's table for
+    decoding."""
+    meta, seqs = arrays["meta"], arrays["seqs"]
+    buf = np.empty(meta.nbytes + seqs.nbytes, np.uint8)
+    buf[:meta.nbytes] = meta.reshape(-1).view(np.uint8)
+    buf[meta.nbytes:] = seqs
+    dev = torch.from_numpy(buf).to(device)
+    out = {k: v for k, v in arrays.items() if k not in ("meta", "seqs")}
+    out["meta"] = dev[:meta.nbytes].view(torch.int64).view(meta.shape)
+    out["seqs"] = dev[meta.nbytes:]
+    out["meta_host"] = meta
+    return out
+
+
+def _caller_order(t: dict, results: list) -> list:
+    """Per-row results of the packed table -> the caller's pair order."""
+    out = [None] * len(results)
+    for k, r in zip(t["order"].tolist(), results):
+        out[k] = r
+    return out
 
 
 def _host_tail(strategy, seg, states, steps, p1, p2):
@@ -271,7 +331,7 @@ def sw_align_torch(t: dict, parameters: SWParameters,
         for k, r in zip(idx, chunk):
             results[k] = r
         lo = hi
-    return results
+    return _caller_order(t, results)
 
 
 _KERNEL = None
@@ -283,13 +343,28 @@ def _kernel() -> ctypes.CDLL:
         from lorikeet_tpu_torch.ops._build import load
         lib = load("sw")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.sw_launch.argtypes = [vp] * 5 + [ci] * 7 + [vp]
+        lib.sw_launch.argtypes = [vp] * 5 + [ci] * 8 + [vp]
         lib.sw_launch.restype = ci
-        lib.sw_max_rows.argtypes = []
-        lib.sw_max_rows.restype = ci
-        if lib.sw_max_rows() != MAX_REF_LEN + 1:
-            raise RuntimeError(f"csrc/sw.cu takes {lib.sw_max_rows()} rows, "
-                               f"sw_cuda.MAX_REF_LEN is {MAX_REF_LEN}")
+        for fn in (lib.sw_max_rows, lib.sw_warp_max_alt):
+            fn.argtypes = []
+            fn.restype = ci
+        lib.sw_scratch_bytes.argtypes = [ci, ci]
+        lib.sw_scratch_bytes.restype = ctypes.c_longlong
+        if (lib.sw_max_rows(), lib.sw_warp_max_alt()) != (MAX_REF_LEN + 1,
+                                                          WARP_MAX_ALT):
+            raise RuntimeError(
+                f"csrc/sw.cu takes {lib.sw_max_rows()} rows and alts to "
+                f"{lib.sw_warp_max_alt()} on a warp; sw_cuda has "
+                f"MAX_REF_LEN {MAX_REF_LEN}, WARP_MAX_ALT {WARP_MAX_ALT}")
+        # the slab sizes the packer lays out are the ones the kernel writes
+        for ref_len, alt_len in ((1, 1), (600, 128), (600, 129), (77, 256),
+                                 (77, 257), (MAX_REF_LEN, WARP_MAX_ALT),
+                                 (600, WARP_MAX_ALT + 1), (3, 3000)):
+            if lib.sw_scratch_bytes(ref_len, alt_len) != _scratch_bytes(
+                    ref_len, alt_len):
+                raise RuntimeError(
+                    f"csrc/sw.cu and sw_cuda._scratch_bytes disagree at ref "
+                    f"{ref_len}, alt {alt_len}")
         _KERNEL = lib
     return _KERNEL
 
@@ -310,57 +385,68 @@ def _check_inputs(t: dict) -> None:
                          f"takes 1..{MAX_REF_LEN}")
 
 
-def sw_kernel_launch(t: dict, parameters: SWParameters, strategy: int):
-    """Launch csrc/sw.cu on the CUDA tensors of ``t``: returns the int32
-    CIGAR codes and the int32 [B, 2] (length, offset) table, on the card."""
+def sw_kernel_launch(t: dict, parameters: SWParameters,
+                     strategy: int) -> torch.Tensor:
+    """Launch csrc/sw.cu on the CUDA tensors of ``t``, once per form present
+    in the table: returns one int32 tensor on the card, the [B, 2] (length,
+    offset) table of the packed rows followed by the CIGAR codes."""
     global SW_LAUNCHES
     dev = t["seqs"].device
     if dev.type != "cuda":
         raise ValueError(f"sw_kernel_launch: tensors on {dev}, want cuda")
     _check_inputs(t)
     lib = _kernel()
-    B = t["meta"].shape[0]
-    scratch = torch.empty(t["scratch_len"], dtype=torch.int32, device=dev)
-    cigar = torch.empty(t["cigar_len"], dtype=torch.int32, device=dev)
-    res = torch.empty(B, 2, dtype=torch.int32, device=dev)
+    B, n_warp = t["meta"].shape[0], t["n_warp"]
+    scratch = torch.empty(t["scratch_len"], dtype=torch.uint8, device=dev)
+    out = torch.empty(2 * B + t["cigar_len"], dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sw_launch(
-            t["seqs"].data_ptr(), t["meta"].data_ptr(), scratch.data_ptr(),
-            cigar.data_ptr(), res.data_ptr(), B, t["rows_max"],
-            parameters.match_value, parameters.mismatch_penalty,
-            parameters.gap_open_penalty, parameters.gap_extend_penalty,
-            int(strategy), stream)
-    if rc != 0:
-        raise RuntimeError(f"sw kernel launch failed: CUDA error {rc} "
-                           f"(B={B}, rows={t['rows_max']})")
-    SW_LAUNCHES += 1
-    return cigar, res
-
-
-def decode(cigar: np.ndarray, res: np.ndarray, meta: np.ndarray) -> list:
-    """Kernel output on the host -> (cigar, offset) per pair, decoded as
-    smith_waterman.align decodes the native codes."""
-    codes = cigar.view(np.uint32)
-    out = []
-    for (n, offset), off in zip(res.tolist(), meta[:, 5].tolist()):
-        out.append(([(_CIGAR_OPS[c & 0xF], c >> 4)
-                     for c in codes[off:off + n].tolist()], offset))
+        for lo, hi, (rows_max, alt_max) in ((0, n_warp, t["warp_max"]),
+                                            (n_warp, B, t["cta_max"])):
+            if hi == lo:
+                continue
+            # table rows lo.. (6 int64 each), the CIGAR codes behind the
+            # 2 * B int32 of (length, offset), and rows lo.. of those
+            rc = lib.sw_launch(
+                t["seqs"].data_ptr(), t["meta"].data_ptr() + 48 * lo,
+                scratch.data_ptr(), out.data_ptr() + 8 * B,
+                out.data_ptr() + 8 * lo, hi - lo, rows_max, alt_max,
+                parameters.match_value, parameters.mismatch_penalty,
+                parameters.gap_open_penalty, parameters.gap_extend_penalty,
+                int(strategy), stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"sw kernel launch failed: CUDA error {rc} (B={hi - lo}, "
+                    f"rows={rows_max}, alt={alt_max})")
+            SW_LAUNCHES += 1
     return out
 
 
+def decode(out: np.ndarray, t: dict) -> list:
+    """The kernel's output on the host -> (cigar, offset) per pair in the
+    caller's order, decoded as smith_waterman.align decodes the native
+    codes."""
+    B = t["meta_host"].shape[0]
+    codes = out[2 * B:].view(np.uint32)
+    rows = []
+    for (n, offset), off in zip(out[:2 * B].reshape(B, 2).tolist(),
+                                t["meta_host"][:, 5].tolist()):
+        rows.append(([(_CIGAR_OPS[c & 0xF], c >> 4)
+                      for c in codes[off:off + n].tolist()], offset))
+    return _caller_order(t, rows)
+
+
 def sw_align(t: dict, parameters: SWParameters, strategy: int) -> list:
-    """(cigar, offset) per packed pair on the device of ``t``'s tensors:
-    the CUDA kernel for a CUDA device, the plain version
-    (:func:`sw_align_torch`) for the CPU."""
+    """(cigar, offset) per pair, in the order ``pack_pairs`` was given, on
+    the device of ``t``'s tensors: the CUDA kernel for a CUDA device (one
+    copy back: lengths, offsets and CIGAR codes in one buffer), the plain
+    version (:func:`sw_align_torch`) for the CPU."""
     dev = t["seqs"].device
     if dev.type == "cpu":
         return sw_align_torch(t, parameters, strategy)
     if dev.type != "cuda":
         raise ValueError(f"sw_align: unsupported device {dev}")
-    cigar, res = sw_kernel_launch(t, parameters, strategy)
-    return decode(cigar.cpu().numpy(), res.cpu().numpy(),
-                  t["meta"].cpu().numpy())
+    return decode(sw_kernel_launch(t, parameters, strategy).cpu().numpy(), t)
 
 
 def align_batch_cuda(pairs, parameters: SWParameters,
@@ -368,7 +454,7 @@ def align_batch_cuda(pairs, parameters: SWParameters,
                      device=None) -> list:
     """(cigar, offset) per (reference, alternate) pair, bit-identical to
     smith_waterman.align.  The batched pairs run on ``device`` (default
-    SW_DEVICE) in launches of at most SCRATCH_BUDGET int32 of scratch."""
+    SW_DEVICE) in chunks of at most SCRATCH_BUDGET bytes of scratch."""
     device = torch.device(SW_DEVICE if device is None else device)
     if device.type == "cuda":
         from lorikeet_tpu_torch.device import require_cuda
@@ -395,7 +481,7 @@ def align_batch_cuda(pairs, parameters: SWParameters,
     while lo < len(todo):
         hi, used = lo, 0
         while hi < len(todo):
-            need = _scratch_len(len(todo[hi][1]), len(todo[hi][2]))
+            need = int(_scratch_bytes(len(todo[hi][1]), len(todo[hi][2])))
             if hi > lo and used + need > SCRATCH_BUDGET:
                 break
             used += need

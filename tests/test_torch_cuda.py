@@ -7,10 +7,14 @@ Pair-HMM: each read length below selects another build of the kernel:
 register strips of 4, 8 and 16 rows per lane (Rpad 128, 256, 384/512) and
 the global-scratch strips of longer reads; the flat kernel (one warp per
 pair) runs the same builds, with haplotype slices for 4, 2 and 1 warps per
-CTA and in global scratch.  Smith-Waterman: the kernel, its
+CTA and in global scratch.  The grouped kernel gives every warp one read
+row: tiles with pad rows, block counts that are not a multiple of 4 and
+read lengths 1 to 3,000 run it.  Smith-Waterman: the kernel, its
 plain version and the native aligner agree exactly, under every overhang
-strategy, at ref lengths that cross the 1-, 2-, 4- and 8-rows-per-thread
-builds up to the cap, and with an alt of 3000 bases.
+strategy and parameter set: the warp form at alt lengths on both sides of
+its 4-, 8- and 16-column strips against refs of 1 base up to the cap, the
+CTA form at ref lengths that cross its 1-, 2-, 4- and 8-rows-per-thread
+builds and with alts of 512 and 3,000 bases, and batches that mix both.
 """
 import numpy as np
 import pytest
@@ -76,6 +80,48 @@ def test_kernel_matches_plain_version(cuda, read_len):
     assert np.all(np.isfinite(got))
     keep = want > F32_SUSPECT_LOG10
     assert keep.any()
+    np.testing.assert_allclose(got[keep], want[keep], rtol=0, atol=TOL)
+
+
+def _pad_row_batch(rng, read_len):
+    """Regions of 33, 7 and 64 reads against 3, 1 and 2 haplotypes: a few
+    reads of ``read_len`` bases (two of them past 512) and, from the same
+    reference, short ones for the rest."""
+    pairs = []
+    for n_reads, n_haps in ((33, 3), (7, 1), (64, 2)):
+        n_long = 2 if read_len > 512 else n_reads // 2
+        region = _region(rng, read_len, n_long, n_haps)
+        haps = [region[k][0] for k in range(n_haps)]
+        pairs += region
+        for _ in range(n_reads - n_long):
+            L = int(rng.integers(1, min(100, read_len) + 1))
+            lo = int(rng.integers(0, len(haps[0]) - L + 1))
+            read = haps[0][lo:lo + L].copy()
+            q = rng.integers(20, 41, L).astype(np.uint8)
+            iq = rng.integers(30, 46, L).astype(np.uint8)
+            pairs += [(h, read, q, iq, iq, np.full(L, 10, np.uint8))
+                      for h in haps]
+    return pairs
+
+
+@pytest.mark.parametrize("read_len", [1, 31, 100, 255, 511, 512, 3000])
+def test_grouped_kernel_pad_rows_and_odd_block_counts(cuda, read_len):
+    """Tiles with 31 and 25 pad rows and full ones; 3 * 2 + 1 + 2 * 2 = 11
+    table blocks, not a multiple of 4; read lengths from 1 base to
+    ``read_len`` in one batch."""
+    pairs = _pad_row_batch(np.random.default_rng(7000 + read_len), read_len)
+    arrays, out_pos = pc.pack_grouped_inputs(pairs)
+    assert arrays["tile_tab"].size == 11
+    assert int((arrays["read_lens"] == 0).sum()) == 31 + 25
+    t = pc.to_tensors(arrays, cuda)
+    got = pc.pairhmm_grouped_cuda(t)
+    torch.cuda.synchronize()
+    want = pc.pairhmm_sweep_torch(t)
+    pos = torch.from_numpy(out_pos).to(cuda)
+    got, want = got[pos].cpu().numpy(), want[pos].cpu().numpy()
+    assert np.all(np.isfinite(got))
+    keep = want > F32_SUSPECT_LOG10
+    assert keep.sum() >= len(pairs) // 3
     np.testing.assert_allclose(got[keep], want[keep], rtol=0, atol=TOL)
 
 
@@ -199,14 +245,83 @@ def _sw_pairs(rng, ref_len, n=6, alt_len=100):
     return pairs
 
 
-def _sw_check(cuda, pairs, params, strategy):
+def _sw_check(cuda, pairs, params, strategy, plain=None):
+    """Kernel == native aligner on every pair and == plain version on the
+    pairs ``plain`` selects (default all); one launch per form present."""
     t = sc.to_tensors(sc.pack_pairs(pairs), cuda)
     launches = sc.SW_LAUNCHES
     got = sc.sw_align(t, params, strategy)
     torch.cuda.synchronize()
-    assert sc.SW_LAUNCHES == launches + 1
-    assert got == sc.sw_align_torch(t, params, strategy)
+    forms = set(sc.sw_form(*np.array([(len(r), len(a)) for r, a in pairs]).T)
+                .tolist())
+    assert sc.SW_LAUNCHES == launches + len(forms)
     assert got == [align(r, a, params, strategy) for r, a in pairs]
+    keep = [k for k, p in enumerate(pairs) if plain is None or plain(*p)]
+    t = sc.to_tensors(sc.pack_pairs([pairs[k] for k in keep]), cuda)
+    assert [got[k] for k in keep] == sc.sw_align_torch(t, params, strategy)
+    return forms
+
+
+def _sw_alt(rng, ref, alt_len):
+    """An alt of exactly ``alt_len`` bases: a mutated stretch of ``ref``
+    where it fits, random bases where it does not."""
+    ref_len = len(ref)
+    if alt_len > ref_len:
+        return b"N" + BASES[rng.integers(0, 4, alt_len - 1)].tobytes()
+    lo = int(rng.integers(0, ref_len - alt_len + 1))
+    alt = bytearray(ref[lo:lo + alt_len])
+    if alt_len >= 8:
+        k = int(rng.integers(1, alt_len - 4))
+        if rng.random() < 0.5:
+            alt[k:k] = BASES[rng.integers(0, 4, 3)].tobytes()
+        else:
+            del alt[k:k + 3]
+        alt = (alt + b"ACG")[:alt_len]
+        alt[int(rng.integers(0, alt_len))] = ord("G")
+    alt[0] = ord("N")
+    return bytes(alt)
+
+
+SW_PARAMS = {"original": ORIGINAL_DEFAULT, "ngs": STANDARD_NGS,
+             "new": NEW_SW_PARAMETERS,
+             "best_hap": ALIGNMENT_TO_BEST_HAPLOTYPE_SW_PARAMETERS}
+
+
+@pytest.mark.parametrize("params", list(SW_PARAMS))
+@pytest.mark.parametrize("strategy", [
+    OverhangStrategy.SOFTCLIP, OverhangStrategy.INDEL,
+    OverhangStrategy.LEADING_INDEL, OverhangStrategy.IGNORE])
+def test_sw_warp_form(cuda, strategy, params):
+    """Alt lengths on both sides of every strip width against refs of 1
+    base, one short of a 128-row boundary, a realignment haplotype and the
+    cap: one launch, all on the warp form.  The plain version is run on the
+    refs up to 600 bases (at the cap it takes minutes)."""
+    rng = np.random.default_rng(100 * strategy + len(params))
+    pairs = []
+    for ref_len in (1, 127, 600, sc.MAX_REF_LEN):
+        ref = BASES[rng.integers(0, 4, ref_len)].tobytes()
+        pairs += [(ref, _sw_alt(rng, ref, alt_len))
+                  for alt_len in (1, 31, 32, 33, 127, 128, 129, 511)]
+    forms = _sw_check(cuda, pairs, SW_PARAMS[params], strategy,
+                      plain=lambda r, a: len(r) <= 600)
+    assert forms == {"warp"}
+
+
+@pytest.mark.parametrize("strategy", [
+    OverhangStrategy.SOFTCLIP, OverhangStrategy.INDEL,
+    OverhangStrategy.LEADING_INDEL, OverhangStrategy.IGNORE])
+def test_sw_mixed_batch_and_cta_form_at_512(cuda, strategy):
+    """Both forms in one batch, interleaved: two launches, results in the
+    caller's order; an alt of 512 bases is the CTA form's shortest."""
+    rng = np.random.default_rng(500 + strategy)
+    ref = BASES[rng.integers(0, 4, 700)].tobytes()
+    pairs = [(ref, _sw_alt(rng, ref, n))
+             for n in (512, 100, 700, 511, 1, 513, 256)]
+    pairs.append((ref[:40], _sw_alt(rng, ref[:40], 512)))
+    assert _sw_check(cuda, pairs, NEW_SW_PARAMETERS, strategy) \
+        == {"warp", "cta"}
+    only = [p for p in pairs if len(p[1]) == 512]
+    assert _sw_check(cuda, only, NEW_SW_PARAMETERS, strategy) == {"cta"}
 
 
 @pytest.mark.parametrize("ref_len", [1, 127, 128, 129, 600, 1500,
@@ -242,6 +357,8 @@ def test_sw_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="want cuda"):
         sc.sw_kernel_launch(t, p, OverhangStrategy.SOFTCLIP)
     t = sc.to_tensors(arrays, cuda)
+    out = sc.sw_kernel_launch(t, p, OverhangStrategy.SOFTCLIP)
+    assert out.dtype == torch.int32 and out.shape == (2 + arrays["cigar_len"],)
     t["rows_max"] = sc.MAX_REF_LEN + 2
     with pytest.raises(ValueError, match="ref of"):
         sc.sw_kernel_launch(t, p, OverhangStrategy.SOFTCLIP)

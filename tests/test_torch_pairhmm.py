@@ -258,3 +258,147 @@ def test_compute_pair_likelihoods_routes_every_batch_to_device(monkeypatch):
     want = tlk.compute_pair_likelihoods(pairs, use_cuda=False)
     assert tlk.DISPATCH_COUNTS["host"] == before["host"] + 1
     np.testing.assert_allclose(got, want, atol=EXACT_TOL)
+
+
+# ---- the packer: tables from the whole pair list at once ----
+
+def _reads(rng, ref, n, lo=20, hi=120):
+    out = []
+    for _ in range(n):
+        R = int(rng.integers(lo, min(hi, len(ref)) + 1))
+        at = int(rng.integers(0, len(ref) - R + 1))
+        read = ref[at:at + R].copy()
+        read[int(rng.integers(0, R))] = BASES[int(rng.integers(0, 4))]
+        out.append(_pair(rng, None, read, q_lo=25)[1:])
+    return out
+
+
+def _haps(rng, n, H):
+    ref = BASES[rng.integers(0, 4, H)]
+    haps = [ref] + [ref.copy() for _ in range(n - 1)]
+    for h in haps[1:]:
+        h[int(rng.integers(0, H))] = BASES[int(rng.integers(0, 4))]
+    return haps
+
+
+def _ragged_pairs():
+    """Read lengths 1 to 126 in one region, haplotypes of three lengths."""
+    rng = np.random.default_rng(31)
+    haps = _haps(rng, 2, 200) + _haps(rng, 1, 131)
+    reads = _reads(rng, haps[0], 9, lo=1, hi=126) \
+        + _reads(rng, haps[0], 1, lo=1, hi=1)
+    return [(h, *r) for r in reads for h in haps]
+
+
+def _duplicate_pairs():
+    """The same tuple object several times, apart and in a row."""
+    pairs = _ragged_pairs()[:12]
+    return pairs + [pairs[3], pairs[3], pairs[0]] + pairs[5:7]
+
+
+def _shared_read_pairs():
+    """One read under two haplotype sets (overlapping regions): it tiles
+    against the union, the regions' own reads against their own sets."""
+    rng = np.random.default_rng(37)
+    haps_a, haps_b = _haps(rng, 3, 180), _haps(rng, 2, 150)
+    reads_a = _reads(rng, haps_a[0], 4, hi=100)
+    reads_b = _reads(rng, haps_b[0], 3, hi=100)
+    shared = _reads(rng, haps_a[0], 1, hi=100)[0]
+    pairs = [(h, *r) for r in reads_a + [shared] for h in haps_a]
+    pairs += [(h, *r) for r in [shared] + reads_b for h in haps_b]
+    return pairs
+
+
+def _single_pair():
+    return _ragged_pairs()[:1]
+
+
+def _pad_row_pairs():
+    """70 reads of one region: three tiles, the last with 26 pad rows; a
+    second region of 32 reads fills its tile exactly."""
+    rng = np.random.default_rng(41)
+    haps = _haps(rng, 2, 160)
+    more = _haps(rng, 3, 140)
+    return [(h, *r) for r in _reads(rng, haps[0], 70, hi=90) for h in haps] \
+        + [(h, *r) for r in _reads(rng, more[0], 32, hi=90) for h in more]
+
+
+PACKER_CASES = {"ragged": _ragged_pairs, "duplicates": _duplicate_pairs,
+                "shared_read": _shared_read_pairs, "single": _single_pair,
+                "pad_rows": _pad_row_pairs}
+
+
+def _flat_values(pairs):
+    a = tph.pack_pairhmm_batch(pairs)
+    t = pc.to_tensors(pc.pack_flat_inputs(
+        a["haps"], a["hap_lens"], a["reads"], a["read_lens"], a["quals"],
+        a["ins_quals"], a["del_quals"], a["gcps"]), "cpu")
+    return pc.pairhmm_flat_torch(t).numpy().astype(np.float64)
+
+
+@pytest.mark.parametrize("case", sorted(PACKER_CASES))
+def test_packer_values_equal_flat_version(case):
+    """Every pair's value through the grouped tables equals the flat plain
+    version's on the same pair: both run the same f32 sweep, and the wider
+    padding of the grouped planes only adds diagonals that rescale by
+    powers of two."""
+    pairs = PACKER_CASES[case]()
+    got = pc.pairhmm_forward_grouped(pairs, "cpu")
+    assert got.shape == (len(pairs),) and np.all(np.isfinite(got))
+    np.testing.assert_array_equal(got, _flat_values(pairs))
+
+
+@pytest.mark.parametrize("case", sorted(PACKER_CASES))
+def test_packer_values_match_jax_grouped_path(case):
+    pairs = PACKER_CASES[case]()
+    got = pc.pairhmm_forward_grouped(pairs, "cpu")
+    want = jax_grouped(pairs, interpret=True)
+    keep = want > tph.F32_SUSPECT_LOG10
+    assert keep.any()
+    np.testing.assert_allclose(got[keep], want[keep], rtol=0, atol=EXACT_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(PACKER_CASES))
+def test_packer_ships_each_read_and_hap_once(case):
+    pairs = PACKER_CASES[case]()
+    arrays, out_pos = pc.pack_grouped_inputs(pairs)
+    reads = {id(p[1]): p for p in pairs}
+    haps = {id(p[0]): p[0] for p in pairs}
+    tile = pc.GROUP_BLOCK_B
+    assert arrays["haps"].shape[0] == len(haps)
+    assert int((arrays["read_lens"] > 0).sum()) == len(reads)
+    assert arrays["quals"].shape[0] % tile == 0
+    # one cell per distinct (read, hap), shared by its duplicates
+    cells = {}
+    for k, p in enumerate(pairs):
+        assert cells.setdefault((id(p[1]), id(p[0])), out_pos[k]) == out_pos[k]
+    assert len(set(cells.values())) == len(cells)
+    # each cell's block names the pair's own read row and haplotype
+    for k, (hap, read, q, iq, dq, gcp) in enumerate(pairs):
+        b, r = divmod(int(out_pos[k]), tile)
+        row = arrays["tile_tab"][b] * tile + r
+        h = arrays["hap_tab"][b]
+        L = len(read)
+        assert arrays["read_lens"][row] == L
+        np.testing.assert_array_equal(arrays["read_u8"][row, 1:L + 1], read)
+        np.testing.assert_array_equal(arrays["ins_q"][row, 1:L + 1], iq)
+        np.testing.assert_array_equal(arrays["del_q"][row, 1:L + 1], dq)
+        assert not arrays["quals"][row, L + 1:].any()
+        np.testing.assert_array_equal(arrays["haps"][h, :len(hap)], hap)
+    # a tile's blocks cover exactly the haplotype set of its reads
+    for t in np.unique(arrays["tile_tab"]):
+        tile_haps = sorted(arrays["hap_tab"][arrays["tile_tab"] == t])
+        assert len(set(tile_haps)) == len(tile_haps)
+
+
+def test_shared_read_tiles_against_the_union():
+    pairs = _shared_read_pairs()
+    arrays, out_pos = pc.pack_grouped_inputs(pairs)
+    shared = pairs[4 * 3][1]                  # fifth read of region a
+    assert sum(p[1] is shared for p in pairs) == 5
+    rows = {int(arrays["tile_tab"][p // 32]) * 32 + int(p % 32)
+            for p, pr in zip(out_pos, pairs) if pr[1] is shared}
+    assert len(rows) == 1                     # shipped once
+    tile = rows.pop() // 32
+    assert int((arrays["tile_tab"] == tile).sum()) == 5     # 3 + 2 haps
+    assert arrays["tile_tab"].size == 3 + 5 + 2

@@ -202,3 +202,120 @@ def test_realign_with_device_sw_matches_native(realign_inputs):
                               for s in lk.samples])
         assert reads[True] == reads[False]
     assert sc.SW_COUNTS["device"] >= 20
+
+
+# ---- the two kernel forms: choice, table order, results in caller order ----
+
+@pytest.mark.parametrize("ref_len,alt_len,form,strip", [
+    (1, 1, "warp", 4), (600, 100, "warp", 4), (8191, 128, "warp", 4),
+    (40, 129, "warp", 8), (300, 256, "warp", 8), (300, 257, "warp", 16),
+    (8191, 511, "warp", 16), (8191, 512, "cta", None),
+    (40, 1500, "cta", None), (1, 8191, "cta", None)])
+def test_form_choice(ref_len, alt_len, form, strip):
+    assert sc.sw_form(ref_len, alt_len) == form
+    need = int(sc._scratch_bytes(ref_len, alt_len))
+    assert need % 32 == 0
+    if form == "warp":
+        assert sc.warp_strip(alt_len) == strip and strip * 32 >= alt_len
+        steps = ref_len + (alt_len - 1) // strip
+        assert need == steps * 32 * strip * 2       # int16 [steps][32][K]
+    else:
+        cells = (ref_len + 1) * (alt_len + 1) + ref_len + alt_len + 2
+        assert 4 * cells <= need < 4 * cells + 32
+    # the vector form agrees with the scalar one
+    both = sc.sw_form(np.array([ref_len, 7]), np.array([alt_len, 9]))
+    assert both.tolist() == [form, "warp"]
+
+
+def _mixed_pairs(rng, alt_lens):
+    pairs = []
+    for n in alt_lens:
+        ref = _random(rng, n + int(rng.integers(0, 60)))
+        alt = bytearray(ref[:n])
+        if n >= 8:                            # mutated, then back to n bases
+            alt = bytearray(_mutate(rng, _mutate(rng, bytes(alt))))
+            alt = (alt + b"T" * n)[:n]
+        alt[0:1] = b"N"                       # never an exact substring
+        pairs += [(ref, bytes(alt)), (ref[:15], bytes(alt))]
+    return pairs
+
+
+def test_pack_pairs_orders_the_table_by_form():
+    rng = np.random.default_rng(12)
+    pairs = _mixed_pairs(rng, (600, 5, 520, 40, 511, 512))
+    arrays = sc.pack_pairs(pairs)
+    meta, order, n_warp = arrays["meta"], arrays["order"], arrays["n_warp"]
+    assert sorted(order.tolist()) == list(range(len(pairs)))
+    forms = sc.sw_form(meta[:, 1], meta[:, 3]).tolist()
+    assert forms == ["warp"] * n_warp + ["cta"] * (len(pairs) - n_warp)
+    assert 0 < n_warp < len(pairs)
+    # each form keeps the caller's order among its own pairs
+    assert order[:n_warp].tolist() == sorted(order[:n_warp].tolist())
+    assert order[n_warp:].tolist() == sorted(order[n_warp:].tolist())
+    for row, k in enumerate(order.tolist()):
+        ref, alt = pairs[k]
+        ro, rl, ao, al, so, _ = meta[row].tolist()
+        assert bytes(arrays["seqs"][ro:ro + rl]) == ref
+        assert bytes(arrays["seqs"][ao:ao + al]) == alt
+        assert so % 32 == 0
+    # slabs do not overlap, and the maxima are those of each form's rows
+    ends = meta[:, 4] + sc._scratch_bytes(meta[:, 1], meta[:, 3])
+    assert (meta[1:, 4] >= ends[:-1]).all() and ends[-1] == \
+        arrays["scratch_len"]
+    assert arrays["warp_max"] == (int(meta[:n_warp, 1].max()) + 1,
+                                  int(meta[:n_warp, 3].max()))
+    assert arrays["cta_max"] == (int(meta[n_warp:, 1].max()) + 1,
+                                 int(meta[n_warp:, 3].max()))
+    # one buffer crosses to the device; meta and seqs are views of it
+    t = sc.to_tensors(arrays, "cpu")
+    assert t["meta"].dtype == torch.int64 and t["seqs"].dtype == torch.uint8
+    np.testing.assert_array_equal(t["meta"].numpy(), meta)
+    np.testing.assert_array_equal(t["seqs"].numpy(), arrays["seqs"])
+    assert t["meta"].untyped_storage().data_ptr() == \
+        t["seqs"].untyped_storage().data_ptr()
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_mixed_batch_matches_native(strategy):
+    """Alternates on both sides of the warp form's cap in one batch: the
+    table is ordered by form, the results come back in the caller's."""
+    rng = np.random.default_rng(40 + strategy)
+    pairs = _mixed_pairs(rng, (1, 33, 129, 511, 512, 530))
+    p = ALIGNMENT_TO_BEST_HAPLOTYPE_SW_PARAMETERS
+    got = sc.align_batch_cuda(pairs, p, strategy)
+    assert sc.SW_COUNTS == {"device": len(pairs), "shortcut": 0,
+                            "scalar_long": 0}
+    for k, (r, a) in enumerate(pairs):
+        assert got[k] == align(r, a, p, strategy), (k, len(r), len(a))
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_mixed_batch_matches_jax_interpret_kernel(strategy, monkeypatch):
+    """The same split at a size the interpret kernel compiles quickly: with
+    the cap moved to 30 bases a batch of short pairs takes both forms."""
+    monkeypatch.setattr(sc, "WARP_MAX_ALT", 30)
+    rng = np.random.default_rng(60 + strategy)
+    pairs = _mixed_pairs(rng, (45, 8, 31, 30, 50, 3))
+    arrays = sc.pack_pairs(pairs)
+    assert 0 < arrays["n_warp"] < len(pairs)
+    assert arrays["order"].tolist() != list(range(len(pairs)))
+    p = ALIGNMENT_TO_BEST_HAPLOTYPE_SW_PARAMETERS
+    want = align_batch_pallas(pairs, p, strategy, interpret=True)
+    assert sc.align_batch_cuda(pairs, p, strategy) == want
+    # split further: one pair a chunk, still the caller's order
+    monkeypatch.setattr(sc, "SCRATCH_BUDGET", 1)
+    assert sc.align_batch_cuda(pairs, p, strategy) == want
+
+
+def test_decode_returns_the_callers_order():
+    """decode on a hand-made kernel output: rows are in table order."""
+    pairs = [(b"ACGTACGTAC", b"N" * 40), (b"ACGTT", b"ACGNT")]
+    arrays = sc.pack_pairs(pairs)
+    arrays["order"] = np.array([1, 0])          # as if pair 0 were CTA form
+    t = sc.to_tensors(arrays, "cpu")
+    off = t["meta_host"][:, 5]
+    out = np.zeros(4 + arrays["cigar_len"], np.int32)
+    out[:4] = [1, 7, 2, 0]                      # (n, offset) per table row
+    out[4 + off[0]] = (5 << 4) | 0              # row 0: 5M
+    out[4 + off[1]:4 + off[1] + 2] = [(3 << 4) | 4, (9 << 4) | 2]  # 3S 9D
+    assert sc.decode(out, t) == [([("S", 3), ("D", 9)], 0), ([("M", 5)], 7)]
