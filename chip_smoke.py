@@ -9,7 +9,8 @@ Phases, one JSON line each; any failure exits non-zero without the final
 1. probe   torch/CUDA versions, the card, its capability (9, 0), nvcc.
 2. build   compile csrc/pairhmm.cu (grouped and flat kernel) and csrc/sw.cu
            (warp and CTA form) for sm_90a from the checkout, in parallel,
-           and print their ptxas lines; a register spill fails the run.
+           and print their ptxas lines and each kernel instantiation's
+           registers; a register spill fails the run.
 3. kernel  region-shaped pairs (64 regions x 6 haplotypes of 300-650 bp x
            40 reads of 100 bp, with N, IUPAC and unknown bytes and duplicate
            tuples) and a long-read batch (500 bp and 3 kb reads): the
@@ -18,10 +19,13 @@ Phases, one JSON line each; any failure exits non-zero without the final
            escalation against the native f64 kernel (<= 2e-3); median times
            over >= 5 runs (CUDA events), and the host packer's (`pack_ms`).
 4. flat_kernel  the same two pair sets, one row per pair, through
-           pairhmm_forward_flat on the card: the flat kernel against its
-           plain version (<= 1e-5) and against the grouped kernel's results
-           for the same pairs (equal: both run the same sweep), timed like
-           the grouped one.
+           pairhmm_forward_flat on the card: one launch per read-length
+           class present, the flat kernel against its plain version and
+           against the grouped kernel's results for the same pairs (both
+           <= 1e-5), timed like the grouped one; the pairs of each class,
+           the useful cells (sum of R * H) and the cells each schedule
+           computes (the anti-diagonal schedule the grouped kernel runs,
+           and the flat kernel's column one).
 5. sw_kernel  the Smith-Waterman kernel against its plain torch version and
            the native aligner, exactly, pair by pair: `region` (64
            haplotypes of 300-650 bp x 40 reads of 100 bp with 1-3
@@ -176,6 +180,48 @@ def tensor_bytes(*tensors) -> int:
     return int(sum(x.numel() * x.element_size() for x in tensors))
 
 
+def ptxas_registers(log: str) -> dict:
+    """{kernel<K>: registers} from ``ptxas -v``: each "Used N registers"
+    line follows its "Compiling entry function" line."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(r"([a-z_]+kernel)ILi(-?\d+)E", m.group(1))
+            name = f"{t.group(1)}<{t.group(2)}>" if t else m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = int(m.group(1))
+            name = None
+    return out
+
+
+def flat_work(read_lens, hap_lens, rpad: int) -> dict:
+    """Cells of a flat batch: useful (sum of R * H), and computed by a warp
+    (32 lanes x strip rows x steps) in the anti-diagonal schedule of
+    ``sweep`` with the strip a batch's Rpad gives it (4, 8 or 16 rows a
+    lane; scratch strips of ceil((R + 1) / 32) rows past 512), and in the
+    flat kernel's column schedule, whose strip is the pair's class K (class
+    0 keeps the anti-diagonal one)."""
+    import numpy as np
+
+    from lorikeet_tpu_torch.ops import pairhmm_cuda as pc
+    R = np.asarray(read_lens, np.int64)
+    H = np.asarray(hap_lens, np.int64)
+    diagonals = pc._round_up(R + H, pc.GROUP)
+    scratch_rows = 32 * ((R + 32) // 32)
+    k_old = rpad // 32
+    old_rows = next((32 * k for k in (4, 8, 16) if k_old <= k), None)
+    old = (old_rows if old_rows else scratch_rows) * diagonals
+    kclass = pc.flat_classes(R)
+    new = np.where(kclass > 0, 32 * kclass * pc.flat_steps(R, H, kclass),
+                   scratch_rows * diagonals)
+    return {"useful_cells": int((R * H).sum()),
+            "computed_cells_old": int(old.sum()),
+            "computed_cells_new": int(new.sum()),
+            "mean_read_len": float(R.mean()), "mean_hap_len": float(H.mean())}
+
+
 def region_pairs(rng, n_regions=64, n_haps=6, n_reads=40, read_len=100):
     """Region-shaped (read x haplotype) cross products with ambiguous bytes
     and duplicate tuples."""
@@ -296,13 +342,16 @@ def flat_kernel_phase(name, pairs, dev, timed: bool) -> dict:
     a = pack_pairhmm_batch(pairs)
     args = (a["haps"], a["hap_lens"], a["reads"], a["read_lens"], a["quals"],
             a["ins_quals"], a["del_quals"], a["gcps"])
+    arrays = pc.pack_flat_inputs(*args)
+    groups = arrays["groups"]
     launches = pc.FLAT_LAUNCHES
     got = pc.pairhmm_forward_flat(*args, device=dev).astype(np.float64)
-    check(pc.FLAT_LAUNCHES == launches + 1,
-          f"{name}: flat kernel launch not counted")
+    check(pc.FLAT_LAUNCHES == launches + len(groups),
+          f"{name}: {pc.FLAT_LAUNCHES - launches} flat launches counted for "
+          f"classes {groups}")
     check(got.shape == (len(pairs),) and np.all(np.isfinite(got)),
           f"{name}: flat kernel output shape or non-finite values")
-    t = pc.to_tensors(pc.pack_flat_inputs(*args), dev)
+    t = pc.to_tensors(arrays, dev)
     plain = pc.pairhmm_flat_torch(t).cpu().numpy().astype(np.float64)
     grouped = pc.pairhmm_forward_grouped(pairs, dev)
     keep = plain > F32_SUSPECT_LOG10
@@ -311,16 +360,26 @@ def flat_kernel_phase(name, pairs, dev, timed: bool) -> dict:
     check(err <= KERNEL_TOL,
           f"{name}: flat kernel vs plain {err} > {KERNEL_TOL}")
     err_grouped = float(np.abs(got[keep] - grouped[keep]).max())
-    check(err_grouped == 0.0,
-          f"{name}: flat vs grouped kernel differ by {err_grouped}: both "
-          "run the same sweep")
+    # not equal any more: the flat kernel's column schedule rescales by the
+    # same rule at other steps than the grouped kernel's anti-diagonals
+    # (exact powers of two), so only log10f of a differently scaled sum,
+    # FMA contraction and deep rows' denormals (escalated) differ
+    check(err_grouped <= KERNEL_TOL,
+          f"{name}: flat vs grouped kernel differ by {err_grouped} > "
+          f"{KERNEL_TOL}")
     cells = int((a["read_lens"].astype(np.int64) * a["hap_lens"]).sum())
     out = {"pairs": len(pairs), "rpad": int(t["quals"].shape[1]),
            "hpad": int(t["haps"].shape[1]), "cells": cells,
+           "classes": {str(k): {"pairs": hi - lo, "launches": 1}
+                       for k, lo, hi in groups},
+           "launches": len(groups),
+           **flat_work(a["read_lens"], a["hap_lens"], t["quals"].shape[1]),
            "max_abs_err_vs_plain": err, "max_abs_err_vs_grouped": err_grouped,
            "escalated_rows": int((~keep).sum()),
            **bound(PAIRHMM_OPS_PER_CELL * cells, PEAK_F32_OPS_S,
-                   tensor_bytes(*t.values()) + 4 * len(pairs))}
+                   tensor_bytes(*(v for v in t.values()
+                                  if isinstance(v, torch.Tensor)))
+                   + 4 * len(pairs))}
     if timed:
         ms = cuda_median_ms(lambda: pc.pairhmm_flat_cuda(t))
         plain_ms = cuda_median_ms(lambda: pc.pairhmm_flat_torch(t), runs=5)
@@ -351,14 +410,16 @@ def region_batch_phase(pairs, dev) -> dict:
     sample_ids = rng.integers(0, n_samples, len(pairs)).astype(np.int32)
     depths = rng.random((len(pairs), n_pos), np.float32)
     a = pack_pairhmm_batch(pairs)
+    n_classes = len(set(pc.flat_classes(a["read_lens"]).tolist()))
     launches = pc.FLAT_LAUNCHES
     t0 = time.perf_counter()
     lk, total = region_batch_step(None, n_samples=n_samples, device=dev)(
         a["haps"], a["hap_lens"], a["reads"], a["read_lens"], a["quals"],
         a["ins_quals"], a["del_quals"], a["gcps"], sample_ids, depths)
     step_ms = (time.perf_counter() - t0) * 1e3
-    check(pc.FLAT_LAUNCHES == launches + 1,
-          "region_batch: the step did not launch the flat kernel once")
+    check(pc.FLAT_LAUNCHES == launches + n_classes,
+          f"region_batch: {pc.FLAT_LAUNCHES - launches} flat launches for "
+          f"{n_classes} read-length classes")
     check(lk.shape == (len(pairs),) and total.shape == (n_samples, n_pos),
           f"region_batch: shapes {lk.shape}, {total.shape}")
     exact = pairhmm_forward_f64(pairs)
@@ -372,6 +433,7 @@ def region_batch_phase(pairs, dev) -> dict:
     check(err_total <= 1e-2, f"region_batch: depth totals off by {err_total}")
     out = {"world_size": group_rank_world()[1], "pairs": len(pairs),
            "n_samples": n_samples, "positions": n_pos,
+           "flat_launches": pc.FLAT_LAUNCHES - launches,
            "max_abs_err_vs_f64": err64, "max_abs_err_total": err_total,
            "step_ms": step_ms}
     emit("region_batch", **out)
@@ -903,6 +965,7 @@ def main() -> int:
         ptxas = [line.strip() for line in _build.BUILD_LOG.get(
             name, "").splitlines() if "registers" in line or "spill" in line]
         emit("build", kernel=name, seconds=_build.BUILD_SECONDS[name],
+             registers=ptxas_registers(_build.BUILD_LOG.get(name, "")),
              ptxas=ptxas)
         spills = [line for line in ptxas if any(int(n) for n in re.findall(
             r"(\d+) bytes spill (?:stores|loads)", line))]

@@ -9,7 +9,8 @@
 // rows of tile tile_tab[b] against haplotype hap_tab[b]; out[b * 32 + r] is
 // the result for read row r of that tile.  flat_kernel takes one row per
 // pair (pack_flat_inputs): read row p against haplotype row p, out[p].
-// Both run the same device function `sweep`.
+// grouped_kernel runs the device function `sweep`; flat_kernel runs
+// `sweep_cols` (below) for reads up to 511 bases and `sweep` for longer ones.
 //
 // Numerics contract (same as the TPU kernel and the torch twin
 // pairhmm_sweep_torch): eps = expf(q * f32(-ln10/10)); mm = 1 - min(1,
@@ -62,17 +63,49 @@
 // tail.  With scratch strips the grid is capped (scratch is sized by
 // resident warps) and CTAs stride over the (block, quarter) list.
 //
-// The flat kernel changes only the work distribution: one warp per pair,
-// and each warp stages its own haplotype's base bits in its own slice of
-// shared memory ([warps][hpad] ints).  A warp synchronises with
+// The flat kernel: one warp per pair, with its own schedule, `sweep_cols`.
+// The anti-diagonal sweep runs R + H diagonals over all 32K rows of the
+// batch's strip, so a 90-base read against a 66-base haplotype in a batch
+// padded to 128 rows computes 128 x 160 cells for 5,940 useful ones.  In
+// sweep_cols lane l holds K consecutive read rows and, at step s, computes
+// column j = s - l of all of them, top to bottom: a lane lags its upper
+// neighbour by one haplotype column.  Cell (i, j) then reads (i-1, j-1) and
+// (i, j-1) from the lane's own registers of the step before, and (i-1, j)
+// from the row just computed; only the strip head's row above comes from
+// lane l-1, whose last row computed column j on the step before: one
+// __shfl_up_sync each of M, I and D, kept one more step as column j-1.  A
+// pair takes H + L - 1 steps (L = ceil((R+1)/K) lanes in use) rounded up to
+// 8, so the fill and drain cost L - 1 <= 31 steps, not R.  The rows are
+// aligned so that row R is the last slot of lane L-1 (the first off = L*K -
+// R - 1 slots of lane 0 lie above the boundary row and stay zero), which
+// makes the last-row sum read a fixed register.  All K rows of a lane meet
+// the same haplotype base at a step, hap_w[s - l - 1]: 32 consecutive words
+// of the warp's slice, no shift register.  The boundary row is computed like
+// any other, with prior 0, m->i = m->d = 0 and gg = 1, so D[0, j] stays 1/H
+// without a per-step reset (its I stays 0: the row above it is a zero slot,
+// or lane 0's head, which takes 0 in place of a shuffle).  K is the pair's
+// own: pack_flat_inputs sorts the pairs into classes K = 1, 2, 4, 8, 16 (the
+// smallest with 32K >= R + 1) and pairhmm_flat_launch runs one class a
+// launch, each at its own register count.  Reads of 512 bases or more
+// (class 0) keep `sweep` on scratch strips.  The renormalisation keeps its
+// rule, every 8 steps over everything the warp carries (boundary D
+// excluded) and acc, so the flat kernel is not bit-equal to the grouped one
+// by construction: how log10f rounds a differently scaled acc may differ,
+// and so may deep rows' denormals (below F32_SUSPECT_LOG10, recomputed in
+// f64 by the caller).
+//
+// Each warp of the flat kernel stages its own haplotype's base bits in its
+// own slice of shared memory ([warps][hpad] ints).  A warp synchronises with
 // __syncwarp() alone, so warps of one CTA may run different numbers of
 // pairs; the one __syncthreads() (after the base-bit table is loaded) lies
 // before the pair loop.  The slices must fit the 227 KB a CTA can ask for:
 // a batch with long haplotypes runs 2 or 1 warps per CTA, and past that
 // (hpad over ~57,000) each resident warp stages into a slice of global
 // scratch instead, so no pair leaves the device for its length.  The grid
-// is one warp slot per pair, capped (with a stride loop) where scratch is
-// sized per resident warp: scratch read strips, global haplotype slices.
+// is one warp slot per pair of the class, capped (with a stride loop) where
+// scratch is sized per resident warp: scratch read strips, global haplotype
+// slices.  A warp takes its pairs through the class's permutation (`order`)
+// and writes each result to the pair's input position.
 // Not done yet (later work): TMA/cp.async staging of the inputs, two pairs
 // interleaved in one warp to hide the chain's latency.
 
@@ -360,6 +393,115 @@ int launch(int grid, size_t smem, cudaStream_t stream,
 
 // ---- flat: one warp per pair ----
 
+// Strip width of the pair-owned schedule: K of the flat classes 1..16
+// (class 0, reads of 512 bases or more, runs `sweep` on scratch strips).
+constexpr int kMaxColK = 16;
+
+// One (read, haplotype) pair in the column schedule (see the header): lane
+// l holds rows lane * KC + k - off, k = 0..KC-1, and at step s computes
+// column j = s - lane of all of them.  Returns the log10 likelihood.
+template <int KC>
+__device__ float sweep_cols(const int lane, const int R, const int H,
+                            const int* hap_w, const int* __restrict__ lut,
+                            const uint8_t* __restrict__ q,
+                            const uint8_t* __restrict__ iq,
+                            const uint8_t* __restrict__ dq,
+                            const uint8_t* __restrict__ gq,
+                            const uint8_t* __restrict__ rd) {
+  const int L = (R + KC) / KC;              // lanes in use: ceil((R+1)/KC)
+  const int off = L * KC - (R + 1);         // slots above row 0 in lane 0
+  const float bval = 1.f / static_cast<float>(H > 0 ? H : 1);
+  // per row: what the read row alone fixes, then M/I/D of the row's last
+  // computed column (column 0 before the first step)
+  float mi[KC], md[KC], gg[KC], pmatch[KC], pmis[KC], mm[KC], omg[KC];
+  int rb[KC];
+  float M[KC], I[KC], D[KC];
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    const int i = lane * KC + k - off;
+    const bool ok = i >= 1 && i <= R;
+    const float eq = ok ? expf(static_cast<float>(q[i]) * kLn10Over10) : 0.f;
+    mi[k] = ok ? expf(static_cast<float>(iq[i]) * kLn10Over10) : 0.f;
+    md[k] = ok ? expf(static_cast<float>(dq[i]) * kLn10Over10) : 0.f;
+    gg[k] = ok ? expf(static_cast<float>(gq[i]) * kLn10Over10)
+               : (i == 0 ? 1.f : 0.f);      // boundary row: D carries on
+    pmatch[k] = 1.f - eq;
+    pmis[k] = eq * kThird;
+    mm[k] = 1.f - fminf(1.f, mi[k] + md[k]);
+    omg[k] = 1.f - gg[k];
+    rb[k] = ok ? lut[rd[i]] : 0;
+    M[k] = 0.f;
+    I[k] = 0.f;
+    D[k] = i == 0 ? bval : 0.f;
+  }
+  // the strip head's row above on the step before (column j-1): its M, and
+  // its I + D
+  float hm = 0.f, hs = 0.f;
+  float acc = 0.f;
+  int ls = 0;
+  const bool end_lane = lane == L - 1;      // row R: slot KC-1 of lane L-1
+  const int zslot = lane == 0 ? off : -1;   // the boundary row's slot
+  const int nsteps = (H + L - 1 + kGroup - 1) / kGroup * kGroup;
+
+  for (int s = 1; s <= nsteps; ++s) {
+    // lane l-1's last row computed column j = s - l on the step before;
+    // lane 0's head lies above row 0 or is row 0, whose I must stay 0
+    const float up_m = __shfl_up_sync(kFull, M[KC - 1], 1);
+    const float up_i = __shfl_up_sync(kFull, I[KC - 1], 1);
+    const float up_d = __shfl_up_sync(kFull, D[KC - 1], 1);
+    const int j = s - lane;
+    const bool in_hap = static_cast<unsigned>(j - 1) < static_cast<unsigned>(H);
+    const int hb = in_hap ? hap_w[j - 1] : 0;
+    float am = up_m;                        // row above, column j
+    float ai = lane == 0 ? 0.f : up_i;
+    float pm = hm, ps = hs;                 // row above, column j-1
+    hm = up_m;
+    hs = up_i + up_d;
+    // top to bottom: row k-1 holds column j and pm/ps its column j-1
+#pragma unroll
+    for (int k = 0; k < KC; ++k) {
+      const float prior = (rb[k] & hb) ? pmatch[k] : pmis[k];
+      const float m_new = prior * (pm * mm[k] + ps * omg[k]);
+      const float i_new = am * mi[k] + ai * gg[k];
+      const float d_new = M[k] * md[k] + D[k] * gg[k];
+      pm = M[k];
+      ps = I[k] + D[k];
+      M[k] = m_new;
+      I[k] = i_new;
+      D[k] = d_new;
+      am = m_new;
+      ai = i_new;
+    }
+    if (end_lane && in_hap) acc += M[KC - 1] + I[KC - 1];
+    if ((s & (kGroup - 1)) == 0) {
+      float peak = acc;
+#pragma unroll
+      for (int k = 0; k < KC; ++k) {
+        const float dv = k == zslot ? 0.f : D[k];
+        peak = fmaxf(peak, fmaxf(M[k], fmaxf(I[k], dv)));
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        peak = fmaxf(peak, __shfl_xor_sync(kFull, peak, o));
+      if (!(peak > 0.f)) peak = 1.f;
+      const int e = (__float_as_int(peak) >> 23) & 0xFF;
+      const float inv = __int_as_float((254 - e) << 23);   // 2^(127 - e)
+#pragma unroll
+      for (int k = 0; k < KC; ++k) {
+        M[k] *= inv;
+        I[k] *= inv;
+        D[k] *= inv;
+      }
+      hm *= inv;
+      hs *= inv;
+      acc *= inv;
+      ls += e - 127;
+    }
+  }
+  const float total = __shfl_sync(kFull, acc, L - 1);
+  return log10f(fmaxf(total, FLT_MIN)) + static_cast<float>(ls) * kLog10Of2;
+}
+
 constexpr int kStaticSmem = 256 * sizeof(int);          // lut
 constexpr size_t kMaxDynSmem = 227 * 1024 - kStaticSmem;
 
@@ -371,7 +513,8 @@ struct FlatPlan {
   bool bounded;     // scratch is sized by grid * warps
 };
 
-FlatPlan flat_plan(int npairs, int rpad, int hpad) {
+// kclass: the pairs' strip width K (1..16), or 0 for scratch strips
+FlatPlan flat_plan(int npairs, int hpad, int kclass) {
   FlatPlan p;
   const size_t slice = static_cast<size_t>(hpad) * sizeof(int);
   p.warps = kWarps;
@@ -379,12 +522,15 @@ FlatPlan flat_plan(int npairs, int rpad, int hpad) {
   p.global_hap = slice * p.warps > kMaxDynSmem;
   if (p.global_hap) p.warps = kWarps;
   p.smem = p.global_hap ? 0 : slice * p.warps;
-  p.bounded = p.global_hap || rpad / 32 > kMaxRegK;
+  p.bounded = p.global_hap || kclass == 0;
   const int ctas = (npairs + p.warps - 1) / p.warps;
   p.grid = p.bounded && ctas > kLongCtas ? kLongCtas : ctas;
   return p;
 }
 
+// KC > 0: the pairs of class KC on sweep_cols; KC == 0: reads of 512
+// bases or more on `sweep` with scratch strips.  Pair p of the launch is
+// input row order[p]; its result goes to out[order[p]].
 template <int KC>
 __global__ void __launch_bounds__(kThreads)
 flat_kernel(const uint8_t* __restrict__ quals,
@@ -396,6 +542,7 @@ flat_kernel(const uint8_t* __restrict__ quals,
             const uint8_t* __restrict__ haps,
             const int* __restrict__ hap_lens,
             const int* __restrict__ base_bits,
+            const int* __restrict__ order,
             float* __restrict__ scratch,
             int* hap_scratch,
             int npairs, int rpad, int hpad,
@@ -415,17 +562,28 @@ flat_kernel(const uint8_t* __restrict__ quals,
       : scratch + slot * static_cast<size_t>(rpad) * kNumFields;
   const size_t stride = static_cast<size_t>(gridDim.x) * warps;
   for (size_t p = slot; p < static_cast<size_t>(npairs); p += stride) {
-    const int R = read_lens[p];
-    const int H = hap_lens[p];
-    const uint8_t* hap = haps + p * static_cast<size_t>(hpad);
+    const size_t row = static_cast<size_t>(order[p]);
+    const int R = read_lens[row];
+    const int H = hap_lens[row];
+    const uint8_t* hap = haps + row * static_cast<size_t>(hpad);
     for (int t = lane; t < H; t += 32) hap_w[t] = lut[hap[t]];
     __syncwarp();
-    const int K = (R + 32) / 32;
-    Strip<KC> st(slab, K, lane);
-    const size_t o = p * static_cast<size_t>(rpad);
-    const float v = sweep<KC>(st, K, lane, R, H, hap_w, lut, quals + o,
-                              ins_q + o, del_q + o, gcp_q + o, read_u8 + o);
-    if (lane == 0) out[p] = v;
+    const size_t o = row * static_cast<size_t>(rpad);
+    float v;
+    if constexpr (KC > 0) {
+      // a read longer than its class's strip: NaN, which the caller's
+      // escalation rule recomputes in f64
+      v = R + 1 > 32 * KC
+          ? __int_as_float(0x7fc00000)
+          : sweep_cols<KC>(lane, R, H, hap_w, lut, quals + o, ins_q + o,
+                           del_q + o, gcp_q + o, read_u8 + o);
+    } else {
+      const int K = (R + 32) / 32;
+      Strip<0> st(slab, K, lane);
+      v = sweep<0>(st, K, lane, R, H, hap_w, lut, quals + o, ins_q + o,
+                   del_q + o, gcp_q + o, read_u8 + o);
+    }
+    if (lane == 0) out[row] = v;
     __syncwarp();               // the next pair overwrites this warp's slice
   }
 }
@@ -435,9 +593,9 @@ int launch_flat(const FlatPlan& plan, cudaStream_t stream,
                 const void* quals, const void* ins_q, const void* del_q,
                 const void* gcp_q, const void* read_u8,
                 const void* read_lens, const void* haps,
-                const void* hap_lens, const void* base_bits, void* scratch,
-                void* hap_scratch, int npairs, int rpad, int hpad,
-                void* out) {
+                const void* hap_lens, const void* base_bits,
+                const int* order, void* scratch, void* hap_scratch,
+                int npairs, int rpad, int hpad, void* out) {
   if (plan.smem > 48 * 1024 - kStaticSmem) {
     const cudaError_t e = cudaFuncSetAttribute(
         flat_kernel<KC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -450,7 +608,7 @@ int launch_flat(const FlatPlan& plan, cudaStream_t stream,
       static_cast<const uint8_t*>(read_u8),
       static_cast<const int*>(read_lens), static_cast<const uint8_t*>(haps),
       static_cast<const int*>(hap_lens), static_cast<const int*>(base_bits),
-      static_cast<float*>(scratch),
+      order, static_cast<float*>(scratch),
       plan.global_hap ? static_cast<int*>(hap_scratch) : nullptr,
       npairs, rpad, hpad, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
@@ -500,47 +658,58 @@ int pairhmm_grouped_launch(const void* tile_tab, const void* hap_tab,
 #undef LORIKEET_ARGS
 }
 
-// Floats of global scratch pairhmm_flat_launch needs for its read strips
-// (0 when they fit in registers), and ints it needs for haplotype slices
-// (0 when they fit in shared memory).
-long long pairhmm_flat_scratch_floats(int npairs, int rpad, int hpad) {
-  if (npairs <= 0 || rpad / 32 <= kMaxRegK) return 0;
-  const FlatPlan p = flat_plan(npairs, rpad, hpad);
+// Floats of global scratch pairhmm_flat_launch needs for the read strips
+// of a launch of `npairs` pairs of class `kclass` (0 unless the class is 0),
+// and ints it needs for haplotype slices (0 when they fit in shared memory).
+long long pairhmm_flat_scratch_floats(int npairs, int rpad, int hpad,
+                                      int kclass) {
+  if (npairs <= 0 || kclass != 0) return 0;
+  const FlatPlan p = flat_plan(npairs, hpad, kclass);
   return static_cast<long long>(p.grid) * p.warps * rpad * kNumFields;
 }
 
-long long pairhmm_flat_hap_scratch_ints(int npairs, int rpad, int hpad) {
+long long pairhmm_flat_hap_scratch_ints(int npairs, int rpad, int hpad,
+                                        int kclass) {
   if (npairs <= 0) return 0;
-  const FlatPlan p = flat_plan(npairs, rpad, hpad);
+  const FlatPlan p = flat_plan(npairs, hpad, kclass);
   return p.global_hap ? static_cast<long long>(p.grid) * p.warps * hpad : 0;
 }
 
-// Launch the flat forward on `stream`: read row p against haplotype row p.
-// Returns cudaGetLastError() (0 on success).  Device pointers: the five u8
-// planes [npairs, rpad], read_lens int32 [npairs], haps u8 [npairs, hpad],
-// hap_lens int32 [npairs], base_bits int32 [256], scratch f32
-// [pairhmm_flat_scratch_floats], hap_scratch int32
-// [pairhmm_flat_hap_scratch_ints], out f32 [npairs].
+// Launch the flat forward for one class on `stream`: pair p = 0..npairs-1
+// is read row order[first + p] against the haplotype row of the same index,
+// its result out[order[first + p]].  kclass is the strip width K (1, 2, 4,
+// 8, 16; every read of the launch has R + 1 <= 32 K) or 0 (scratch strips,
+// any length).  Returns cudaGetLastError() (0 on success).  Device
+// pointers: the five u8 planes [B, rpad], read_lens int32 [B], haps u8
+// [B, hpad], hap_lens int32 [B], base_bits int32 [256], order int32 [B],
+// scratch f32 [pairhmm_flat_scratch_floats], hap_scratch int32
+// [pairhmm_flat_hap_scratch_ints], out f32 [B].
 int pairhmm_flat_launch(const void* quals, const void* ins_q,
                         const void* del_q, const void* gcp_q,
                         const void* read_u8, const void* read_lens,
                         const void* haps, const void* hap_lens,
-                        const void* base_bits, void* scratch,
-                        void* hap_scratch, int npairs, int rpad, int hpad,
+                        const void* base_bits, const void* order,
+                        void* scratch, void* hap_scratch, int kclass,
+                        int first, int npairs, int rpad, int hpad,
                         void* out, void* stream) {
   if (npairs <= 0) return 0;
-  if (rpad <= 0 || rpad % 32 != 0 || hpad < 0)
+  if (rpad <= 0 || rpad % 32 != 0 || hpad < 0 || first < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const FlatPlan plan = flat_plan(npairs, rpad, hpad);
+  const FlatPlan plan = flat_plan(npairs, hpad, kclass);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int K = rpad / 32;
+  const int* ord = static_cast<const int*>(order) + first;
 #define LORIKEET_ARGS plan, s, quals, ins_q, del_q, gcp_q, read_u8, \
-    read_lens, haps, hap_lens, base_bits, scratch, hap_scratch, npairs, \
+    read_lens, haps, hap_lens, base_bits, ord, scratch, hap_scratch, npairs, \
     rpad, hpad, out
-  if (K <= 4) return launch_flat<4>(LORIKEET_ARGS);
-  if (K <= 8) return launch_flat<8>(LORIKEET_ARGS);
-  if (K <= kMaxRegK) return launch_flat<kMaxRegK>(LORIKEET_ARGS);
-  return launch_flat<0>(LORIKEET_ARGS);
+  switch (kclass) {
+    case 0: return launch_flat<0>(LORIKEET_ARGS);
+    case 1: return launch_flat<1>(LORIKEET_ARGS);
+    case 2: return launch_flat<2>(LORIKEET_ARGS);
+    case 4: return launch_flat<4>(LORIKEET_ARGS);
+    case 8: return launch_flat<8>(LORIKEET_ARGS);
+    case kMaxColK: return launch_flat<kMaxColK>(LORIKEET_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 #undef LORIKEET_ARGS
 }
 

@@ -19,7 +19,8 @@ The flat form is one row per pair: read row p against haplotype row p.
   version only for tensors on the CPU.  It never falls back: a failed build
   or launch raises.
 - :func:`pack_flat_inputs`, :func:`pairhmm_flat_torch` and
-  :func:`pairhmm_flat_cuda` are the same three for the flat kernel;
+  :func:`pairhmm_flat_cuda` are the same three for the flat kernel, whose
+  pairs run in classes of read length (:func:`flat_classes`), a launch each;
   :func:`pairhmm_forward_flat` is its entry point on padded batch arrays and
   :func:`pairhmm_forward_sharded` splits the pairs over the ranks of a
   ``torch.distributed`` group.
@@ -55,6 +56,11 @@ _BASE_BITS[0] = 0
 GROUP = 8
 #: read rows per table block (the kernel's tile height)
 GROUP_BLOCK_B = 32
+#: strip widths (read rows a lane) of the flat kernel's column schedule
+FLAT_CLASSES = (1, 2, 4, 8, 16)
+#: the flat kernel's classes in launch order; 0 holds reads of 512 bases or
+#: more, on the anti-diagonal sweep with scratch strips
+FLAT_ORDER = FLAT_CLASSES + (0,)
 
 #: kernel launches made by pairhmm_grouped_cuda in this process
 LAUNCHES = 0
@@ -199,8 +205,10 @@ def pack_grouped_inputs(pairs):
 
 def to_tensors(arrays: dict, device) -> dict:
     """The packed arrays as tensors on ``device``, plus the base-bit
-    table the kernel and the plain version both read."""
-    t = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+    table the kernel and the plain version both read.  What is not an
+    array (the flat packer's ``groups``) stays on the host as it is."""
+    t = {k: torch.from_numpy(v).to(device) if isinstance(v, np.ndarray)
+         else v for k, v in arrays.items()}
     t["base_bits"] = torch.from_numpy(_BASE_BITS).to(device)
     return t
 
@@ -222,6 +230,8 @@ def pairhmm_sweep_torch(t: dict) -> torch.Tensor:
 def pairhmm_flat_torch(t: dict) -> torch.Tensor:
     """Plain torch version of the flat sweep: f32 [B], read row p against
     haplotype row p, on the device of the inputs."""
+    if t["quals"].shape[0] == 0:
+        return torch.zeros(0, dtype=torch.float32, device=t["quals"].device)
     return _sweep_rows({p: t[p] for p in _PLANES}, t["read_lens"].long(),
                        t["hap_lens"].long(), t["haps"], t["base_bits"])
 
@@ -320,11 +330,11 @@ def _kernel() -> ctypes.CDLL:
         lib.pairhmm_grouped_launch.restype = ci
         lib.pairhmm_scratch_floats.argtypes = [ci, ci]
         lib.pairhmm_scratch_floats.restype = ctypes.c_longlong
-        lib.pairhmm_flat_launch.argtypes = [vp] * 11 + [ci] * 3 + [vp, vp]
+        lib.pairhmm_flat_launch.argtypes = [vp] * 12 + [ci] * 5 + [vp, vp]
         lib.pairhmm_flat_launch.restype = ci
         for fn in (lib.pairhmm_flat_scratch_floats,
                    lib.pairhmm_flat_hap_scratch_ints):
-            fn.argtypes = [ci, ci, ci]
+            fn.argtypes = [ci, ci, ci, ci]
             fn.restype = ctypes.c_longlong
         _KERNEL = lib
     return _KERNEL
@@ -333,8 +343,12 @@ def _kernel() -> ctypes.CDLL:
 _DTYPES = {"tile_tab": torch.int32, "hap_tab": torch.int32,
            "hap_lens": torch.int32, "read_lens": torch.int32,
            "haps": torch.uint8, "base_bits": torch.int32,
+           "order": torch.int32,
            **{p: torch.uint8 for p in _PLANES}}
-_FLAT_NAMES = (*_PLANES, "read_lens", "haps", "hap_lens", "base_bits")
+_GROUPED_NAMES = ("tile_tab", "hap_tab", "hap_lens", *_PLANES, "read_lens",
+                  "haps", "base_bits")
+_FLAT_NAMES = (*_PLANES, "read_lens", "haps", "hap_lens", "base_bits",
+               "order")
 
 
 def _check_tensors(t: dict, names) -> tuple:
@@ -358,7 +372,7 @@ def _check_tensors(t: dict, names) -> tuple:
 
 
 def _check_inputs(t: dict) -> None:
-    rows, rpad = _check_tensors(t, _DTYPES)
+    rows, rpad = _check_tensors(t, _GROUPED_NAMES)
     if rpad % 128 or rows % GROUP_BLOCK_B:
         raise ValueError(f"pairhmm planes {tuple(t['quals'].shape)}: rows "
                          f"must be a multiple of {GROUP_BLOCK_B}, Rpad of 128")
@@ -372,6 +386,14 @@ def _check_flat_inputs(t: dict) -> None:
         raise ValueError(f"flat pairhmm planes {tuple(t['quals'].shape)}, "
                          f"haps {tuple(t['haps'].shape)}: Rpad must be a "
                          "multiple of 32, one haplotype row per read row")
+    groups = t["groups"]
+    starts = [0] + [hi for _, _, hi in groups]
+    if t["order"].shape != (rows,) or starts[-1] != rows or any(
+            k not in FLAT_ORDER or lo != a
+            for (k, lo, _), a in zip(groups, starts)):
+        raise ValueError(f"flat pairhmm order {tuple(t['order'].shape)} and "
+                         f"groups {groups}: the groups must cover the {rows} "
+                         "rows in turn, one class of FLAT_ORDER each")
 
 
 def pairhmm_grouped_cuda(t: dict) -> torch.Tensor:
@@ -396,9 +418,7 @@ def pairhmm_grouped_cuda(t: dict) -> torch.Tensor:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.pairhmm_grouped_launch(
-            *(t[k].data_ptr() for k in (
-                "tile_tab", "hap_tab", "hap_lens", *_PLANES, "read_lens",
-                "haps", "base_bits")),
+            *(t[k].data_ptr() for k in _GROUPED_NAMES),
             scratch.data_ptr(), nblocks, rpad, hpad, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"pairhmm kernel launch failed: CUDA error {rc} "
@@ -424,14 +444,45 @@ def pairhmm_forward_grouped(pairs, device) -> np.ndarray:
 
 # ---- flat: one row per pair ----
 
+def _flat_rank(read_lens) -> np.ndarray:
+    """Index into :data:`FLAT_ORDER` of each read length's class."""
+    R = np.asarray(read_lens, np.int64)
+    return np.searchsorted(32 * np.array(FLAT_CLASSES), R + 1)
+
+
+def flat_classes(read_lens) -> np.ndarray:
+    """The flat kernel's class of each read length: the smallest strip
+    width K of :data:`FLAT_CLASSES` with 32 K >= R + 1 (the read's rows and
+    the boundary row fill at most 32 lanes), 0 for reads of 512 bases or
+    more (scratch strips, the anti-diagonal sweep)."""
+    return np.array(FLAT_ORDER)[_flat_rank(read_lens)]
+
+
+def flat_steps(read_lens, hap_lens, kclass) -> np.ndarray:
+    """Steps the flat kernel takes for each pair: H + L - 1 with L =
+    ceil((R + 1) / K) lanes in use for class K, R + H diagonals for class 0,
+    both rounded up to GROUP."""
+    R = np.asarray(read_lens, np.int64)
+    H = np.asarray(hap_lens, np.int64)
+    k = np.asarray(kclass, np.int64)
+    lanes = -(-(R + 1) // np.maximum(k, 1))
+    return _round_up(np.where(k > 0, H + lanes - 1, R + H), GROUP)
+
+
 def pack_flat_inputs(haps, hap_lens, reads, read_lens, quals, ins_quals,
                      del_quals, gcps) -> dict:
     """Padded batch arrays (``pack_pairhmm_batch``'s layout: haps [B, Hmax],
     reads and the four quality planes [B, Rmax], lengths [B]) as the flat
     kernel's operands: the five u8 planes [B, Rpad] with the read at
     columns 1..R (column 0 is the boundary row), ``haps`` u8 [B, Hmax] and
-    int32 ``read_lens`` / ``hap_lens`` [B].  Exactly B rows: no slabs, no
-    pad pairs."""
+    int32 ``read_lens`` / ``hap_lens`` [B].  Exactly B rows, in input
+    order: no slabs, no pad pairs.
+
+    The pairs' schedule: int32 ``order`` [B] lists the rows class by class
+    (:func:`flat_classes`, stable), within a class the most steps
+    (:func:`flat_steps`) first, so that a launch's last wave holds its
+    shortest pairs; ``groups`` is one (K, start, stop) slice of ``order``
+    per class present, one kernel launch each."""
     reads = np.asarray(reads, np.uint8)
     B, rmax = reads.shape
     rpad = _round_up(rmax + 1, 32)
@@ -443,13 +494,24 @@ def pack_flat_inputs(haps, hap_lens, reads, read_lens, quals, ins_quals,
     arrays["read_lens"] = np.ascontiguousarray(read_lens, np.int32)
     arrays["haps"] = np.ascontiguousarray(haps, np.uint8)
     arrays["hap_lens"] = np.ascontiguousarray(hap_lens, np.int32)
+    rank = _flat_rank(arrays["read_lens"])
+    steps = flat_steps(arrays["read_lens"], arrays["hap_lens"],
+                       np.array(FLAT_ORDER)[rank])
+    order = np.lexsort((-steps, rank))
+    arrays["order"] = order.astype(np.int32)
+    ranks, starts, counts = np.unique(rank[order], return_index=True,
+                                      return_counts=True)
+    arrays["groups"] = tuple(
+        (int(FLAT_ORDER[r]), int(a), int(a + n))
+        for r, a, n in zip(ranks, starts, counts))
     return arrays
 
 
 def pairhmm_flat_cuda(t: dict) -> torch.Tensor:
-    """Flat forward, f32 [B], on the device of ``t``'s tensors: the CUDA
-    kernel for a CUDA device, the plain version (:func:`pairhmm_flat_torch`)
-    for the CPU."""
+    """Flat forward, f32 [B] in input order, on the device of ``t``'s
+    tensors: the CUDA kernel for a CUDA device, one launch per class of
+    ``t["groups"]``; the plain version (:func:`pairhmm_flat_torch`) for the
+    CPU."""
     global FLAT_LAUNCHES
     dev = t["quals"].device
     if dev.type == "cpu":
@@ -461,24 +523,23 @@ def pairhmm_flat_cuda(t: dict) -> torch.Tensor:
     npairs, rpad = t["quals"].shape
     hpad = t["haps"].shape[1]
     out = torch.empty(npairs, dtype=torch.float32, device=dev)
-    if npairs == 0:
-        return out
-    scratch = torch.empty(
-        max(1, lib.pairhmm_flat_scratch_floats(npairs, rpad, hpad)),
-        dtype=torch.float32, device=dev)
-    hap_scratch = torch.empty(
-        max(1, lib.pairhmm_flat_hap_scratch_ints(npairs, rpad, hpad)),
-        dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.pairhmm_flat_launch(
-            *(t[k].data_ptr() for k in _FLAT_NAMES), scratch.data_ptr(),
-            hap_scratch.data_ptr(), npairs, rpad, hpad, out.data_ptr(),
-            stream)
-    if rc != 0:
-        raise RuntimeError(f"flat pairhmm kernel launch failed: CUDA error "
-                           f"{rc} (B={npairs}, Rpad={rpad}, Hmax={hpad})")
-    FLAT_LAUNCHES += 1
+        for kclass, lo, hi in t["groups"]:
+            n = hi - lo
+            scratch = torch.empty(max(1, lib.pairhmm_flat_scratch_floats(
+                n, rpad, hpad, kclass)), dtype=torch.float32, device=dev)
+            hap_scratch = torch.empty(max(1, lib.pairhmm_flat_hap_scratch_ints(
+                n, rpad, hpad, kclass)), dtype=torch.int32, device=dev)
+            rc = lib.pairhmm_flat_launch(
+                *(t[k].data_ptr() for k in _FLAT_NAMES), scratch.data_ptr(),
+                hap_scratch.data_ptr(), kclass, lo, n, rpad, hpad,
+                out.data_ptr(), stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"flat pairhmm kernel launch failed: CUDA error {rc} "
+                    f"(class K={kclass}, {n} pairs, Rpad={rpad}, Hmax={hpad})")
+            FLAT_LAUNCHES += 1
     return out
 
 
@@ -494,8 +555,8 @@ def pairhmm_forward_flat(haps, hap_lens, reads, read_lens, quals, ins_quals,
                          del_quals, gcps, device="cuda") -> np.ndarray:
     """Batched forward log10 likelihoods, f32 [B], of read b against
     haplotype b: the contract of the JAX package's
-    ``pairhmm_forward_pallas``.  One kernel launch on a CUDA ``device``;
-    the plain version on ``"cpu"``."""
+    ``pairhmm_forward_pallas``.  One kernel launch per read-length class
+    present on a CUDA ``device``; the plain version on ``"cpu"``."""
     arrays = pack_flat_inputs(haps, hap_lens, reads, read_lens, quals,
                               ins_quals, del_quals, gcps)
     return _forward_flat_tensor(arrays, device).cpu().numpy()

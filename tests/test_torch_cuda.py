@@ -7,7 +7,11 @@ Pair-HMM: each read length below selects another build of the kernel:
 register strips of 4, 8 and 16 rows per lane (Rpad 128, 256, 384/512) and
 the global-scratch strips of longer reads; the flat kernel (one warp per
 pair) runs the same builds, with haplotype slices for 4, 2 and 1 warps per
-CTA and in global scratch.  The grouped kernel gives every warp one read
+CTA and in global scratch.  The flat kernel sweeps reads up to 511 bases
+in their own class (strips of 1, 2, 4, 8 and 16 rows a lane, a launch a
+class present) and longer ones on the scratch strips; each class alone, a
+batch of all of them and the grouped kernel's results hold it.  The
+grouped kernel gives every warp one read
 row: tiles with pad rows, block counts that are not a multiple of 4 and
 read lengths 1 to 3,000 run it.  Smith-Waterman: the kernel, its
 plain version and the native aligner agree exactly, under every overhang
@@ -35,6 +39,11 @@ pytestmark = pytest.mark.cuda
 #: kernel vs torch twin, same f32 sweep on the same card: only expf/log10f
 #: and FMA contraction differ; the bound chip_smoke.py holds as well
 TOL = 1e-4
+#: the flat kernel's classes against the plain version and the grouped
+#: kernel: the column schedule rescales at other steps than the
+#: anti-diagonal one, exactly (powers of two); log10f of a differently
+#: scaled sum and FMA contraction are what differ (chip_smoke.py KERNEL_TOL)
+FLAT_TOL = 1e-5
 BASES = np.frombuffer(b"ACGTN", np.uint8)
 
 
@@ -150,7 +159,9 @@ def _flat_pair(rng, read_len, hap_len):
     return (hap, read, q, iq, iq, np.full(read_len, 10, np.uint8))
 
 
-def _flat_check(cuda, pairs):
+def _flat_check(cuda, pairs, tol=TOL):
+    """Flat kernel == plain version on the kept rows, in input order; one
+    launch per class present.  Returns (results, classes)."""
     a = pack_pairhmm_batch(pairs)
     arrays = pc.pack_flat_inputs(
         a["haps"], a["hap_lens"], a["reads"], a["read_lens"], a["quals"],
@@ -159,15 +170,15 @@ def _flat_check(cuda, pairs):
     launches = pc.FLAT_LAUNCHES
     got = pc.pairhmm_flat_cuda(t)
     torch.cuda.synchronize()
-    assert pc.FLAT_LAUNCHES == launches + 1
+    assert pc.FLAT_LAUNCHES == launches + len(arrays["groups"])
     assert got.shape == (len(pairs),)
     want = pc.pairhmm_flat_torch(t)
     got, want = got.cpu().numpy(), want.cpu().numpy()
     assert np.all(np.isfinite(got))
     keep = want > F32_SUSPECT_LOG10
     assert keep.sum() >= len(pairs) // 2
-    np.testing.assert_allclose(got[keep], want[keep], rtol=0, atol=TOL)
-    return got
+    np.testing.assert_allclose(got[keep], want[keep], rtol=0, atol=tol)
+    return got, [g[0] for g in arrays["groups"]]
 
 
 @pytest.mark.parametrize("read_len", [1, 31, 32, 127, 128, 511, 512, 3000])
@@ -182,6 +193,32 @@ def test_flat_kernel_matches_plain_version(cuda, read_len):
               for h in (1, 2, 33, read_len + 1)]
     assert len(pairs) % 4
     _flat_check(cuda, pairs)
+
+
+@pytest.mark.parametrize("kclass", pc.FLAT_CLASSES)
+def test_flat_kernel_each_class_alone(cuda, kclass):
+    """Reads of one class only, at both of its edges and between, against
+    haplotypes of 1 base, shorter than the read, and longer: one launch."""
+    rng = np.random.default_rng(2000 + kclass)
+    lo, hi = (1, 31) if kclass == 1 else (16 * kclass, 32 * kclass - 1)
+    pairs = [_flat_pair(rng, r, h) for r in (lo, (lo + hi) // 2, hi)
+             for h in (1, max(1, r // 2), r + 40, 3 * r + 7)]
+    pairs += [_flat_pair(rng, hi, hi + 100) for _ in range(6)]
+    _, classes = _flat_check(cuda, pairs, tol=FLAT_TOL)
+    assert classes == [kclass]
+
+
+def test_flat_kernel_mixed_classes_in_input_order(cuda):
+    """Every class and the scratch strips in one batch, interleaved, with
+    duplicate tuples: six launches, results where the pairs stood."""
+    rng = np.random.default_rng(2100)
+    lens = (600, 1, 255, 40, 511, 100, 31, 64, 128, 256, 32, 3000, 63)
+    pairs = [_flat_pair(rng, r, r + int(rng.integers(0, 200)))
+             for r in lens for _ in range(3)]
+    pairs += [pairs[4], pairs[0], pairs[4]]
+    got, classes = _flat_check(cuda, pairs, tol=FLAT_TOL)
+    assert classes == [*pc.FLAT_CLASSES, 0]
+    np.testing.assert_array_equal(got[-3:], got[[4, 0, 4]])
 
 
 @pytest.mark.parametrize("hap_len", [5000, 20000, 30000, 60000])
@@ -199,10 +236,15 @@ def test_flat_kernel_long_haplotypes(cuda, hap_len):
 
 
 def test_flat_kernel_matches_grouped_kernel(cuda):
-    pairs = _region(np.random.default_rng(9), 100, 23, 3)
-    flat = _flat_check(cuda, pairs)
+    pairs = _region(np.random.default_rng(9), 100, 23, 3) \
+        + _region(np.random.default_rng(10), 40, 9, 2) \
+        + _region(np.random.default_rng(11), 250, 5, 2)
+    flat, classes = _flat_check(cuda, pairs, tol=FLAT_TOL)
+    assert classes == [2, 4, 8]
     grouped = pc.pairhmm_forward_grouped(pairs, cuda)
-    np.testing.assert_allclose(flat, grouped, rtol=0, atol=1e-5)
+    keep = grouped > F32_SUSPECT_LOG10
+    np.testing.assert_allclose(flat[keep], grouped[keep], rtol=0,
+                               atol=FLAT_TOL)
 
 
 def test_flat_kernel_rejects_bad_inputs(cuda):
@@ -219,6 +261,16 @@ def test_flat_kernel_rejects_bad_inputs(cuda):
     t["quals"] = t["quals"][:, :33].contiguous()
     with pytest.raises(ValueError, match="plane"):
         pc.pairhmm_flat_cuda(t)
+    t = pc.to_tensors(arrays, cuda)
+    t["groups"] = ((4, 0, 2),)                   # the third pair left out
+    with pytest.raises(ValueError, match="groups"):
+        pc.pairhmm_flat_cuda(t)
+    # 50-base reads put in the 1-row class: the kernel writes NaN, which
+    # the escalation rule recomputes, and reads nothing past the strip
+    t["groups"] = ((1, 0, 3),)
+    got = pc.pairhmm_flat_cuda(t)
+    torch.cuda.synchronize()
+    assert torch.isnan(got).all()
 
 
 def _sw_pairs(rng, ref_len, n=6, alt_len=100):
