@@ -47,24 +47,43 @@ Phases, one JSON line each; any failure exits non-zero without the final
            kernel, every span's activity of the device-activity leg through
            the device chain, and the VCFs byte-identical with and without
            --pallas-sw (card legs; f64 legs).
-7. main_path  the largest pair-HMM batch of the first card leg, replayed:
+7. pool    three `call -t 4` legs on the same genome through the span-worker
+           pool (four CPU workers; the parent's card serves their batches):
+           the default card leg, --pallas-sw, --force-cpu.  Every output
+           file byte-identical to its -t 1 leg's; the parent's K2 and SW
+           launches, SW routes and escalations equal to the -t 1 leg's (the
+           K2 launches and served batches plus one for each span rerun with
+           the deletions carried from the span before); one served pair
+           batch per span and none on a worker's host; the
+           workers' SW batches sent to the service; no worker with torch
+           imported, CUDA initialised or a module of jax or the JAX
+           package; and while the
+           workers are alive `nvidia-smi` lists one process on the card, and
+           two with a spawned child that opens a context (the control).
+           Then the user's command line with no -t (the default 8) in a
+           process of its own: its VCF is the -t 1 card leg's.
+8. genotype  `genotype` at -t 1 and -t 4 on the card, same genome: every
+           output file (VCF, strain coverages, the three ANI tables, the
+           strain FASTAs) identical.
+9. main_path  the largest pair-HMM batch of the first card leg, replayed:
            grouped kernel against the plain version, both timed; and the
            same batch one row per pair through the flat kernel
            (flat_kernel line `main_path`).
-8. sw_main_path  the largest realignment SW batch of the first card leg,
+10. sw_main_path  the largest realignment SW batch of the first card leg,
            replayed: kernel, plain version and native aligner, all timed,
            and the whole align_batch_cuda call (`call_ms`).
-9. region_batch  region_batch_step at world size 1 on the flattened
+11. region_batch  region_batch_step at world size 1 on the flattened
            main-path batch with sample ids and depths from the seed: lk
            against the f64 host kernel after the escalation rule (<= 2e-3),
            the depth totals against numpy.
-10. activity  smoothed_activity_device on the longest span of the
+12. activity  smoothed_activity_device on the longest span of the
            device-activity leg (its real gls and HQ means) against the host
            active_probabilities + band_pass_smooth (atol 2e-3), timed.
-11. dryrun  parallel.dryrun.dryrun(1) on the card: the sharded activity
+13. dryrun  parallel.dryrun.dryrun(1) on the card: the sharded activity
            step, the region-batch step and a small `call` over a planted SNP.
-12. trace  the default card leg and the --pallas-sw one again, each under
-           torch.profiler, for the share of the run the card sits idle.
+14. trace  the default card leg, the --pallas-sw one and the -t 4 default
+           leg again, each under torch.profiler, for the share of the run
+           the card sits idle.
 
 The line before the last lists the three kernels (launches on the path that
 runs each, counted from 0 just before it; largest error against the plain
@@ -123,6 +142,12 @@ LEG_FLAGS = {"gpu": [], "gpu_sw": ["--pallas-sw"], "f64": ["--force-cpu"],
 LEG_ENV = {"gpu_act": {"LORIKEET_DEVICE_ACTIVITY": "1"}}
 #: legs whose VCFs must be byte-identical: only the SW's device differs
 SAME_VCF = (("gpu", "gpu_sw"), ("f64", "f64_sw"))
+#: -t of the pool legs: four workers beside the parent on the 8 cores
+POOL_THREADS = 4
+#: the pool legs and the -t 1 legs whose outputs they must equal, in the
+#: order they run; the default card leg last, so that its workers are alive
+#: for the nvidia-smi reading and the genotype leg takes its pool
+POOL_LEGS = (("gpu_sw_t4", "gpu_sw"), ("f64_t4", "f64"), ("gpu_t4", "gpu"))
 
 
 def emit(phase: str, **fields):
@@ -283,7 +308,7 @@ def kernel_phase(name, pairs, dev, timed: bool) -> dict:
         F32_SUSPECT_LOG10, pairhmm_forward_checked, pairhmm_forward_f64,
     )
 
-    arrays, out_pos = pc.pack_grouped_inputs(pairs)
+    arrays, out_pos = pc.prepare_grouped_jobs(pairs)
     t = pc.to_tensors(arrays, dev)
     pos = torch.from_numpy(out_pos).to(dev)
     launches = pc.LAUNCHES
@@ -318,7 +343,7 @@ def kernel_phase(name, pairs, dev, timed: bool) -> dict:
         t0 = time.perf_counter()
         pc.pairhmm_forward_grouped(pairs, dev)
         forward_ms = (time.perf_counter() - t0) * 1e3
-        pack_ms = host_median_ms(lambda: pc.pack_grouped_inputs(pairs))
+        pack_ms = host_median_ms(lambda: pc.prepare_grouped_jobs(pairs))
         out.update(ms=ms, plain_ms=plain_ms, forward_ms=forward_ms,
                    pack_ms=pack_ms,
                    gcups=out["cells"] / (ms * 1e-3) / 1e9,
@@ -710,9 +735,13 @@ def read_sites(vcf):
     return sites
 
 
-def call_leg(label, fasta, bams, outdir, extra, env=None):
-    """One `call` run through the CLI, under the environment variables of
-    ``env``; returns its counters."""
+def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
+             mode="call"):
+    """One run of ``mode`` (`call` or `genotype`) through the CLI at -t
+    ``threads``, under the environment variables of ``env``; returns its
+    counters.  The counting wrappers below see the work of this process
+    only: at -t above 1 the workers' counters come back through the pool,
+    and the parent's service moves LAUNCHES, SW_LAUNCHES and SW_COUNTS."""
     from lorikeet_tpu_torch import cli
     from lorikeet_tpu_torch.calling import engine
     from lorikeet_tpu_torch.calling import likelihoods as lk
@@ -720,6 +749,7 @@ def call_leg(label, fasta, bams, outdir, extra, env=None):
     from lorikeet_tpu_torch.ops import pairhmm_cuda as pc
     from lorikeet_tpu_torch.ops import sw_cuda as sc
     from lorikeet_tpu_torch.parallel import pipeline
+    from lorikeet_tpu_torch.parallel import pool
     from lorikeet_tpu_torch.utils import progress
 
     work = {"regions": 0, "batches": 0, "pairs": 0, "cells": 0}
@@ -765,7 +795,10 @@ def call_leg(label, fasta, bams, outdir, extra, env=None):
     saved_env = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     progress.GLOBAL_STAGES = {}
-    lk.DISPATCH_COUNTS.update(device=0, host=0)
+    lk.DISPATCH_COUNTS.update(device=0, host=0, remote=0)
+    pool.WORKER_COUNTS.update(lk_batches=0, sw_batches=0)
+    pool.SPAN_RERUNS.update(spans=0)
+    pool.WORKER_REPORTS.clear()
     ph.ESCALATIONS.update(checked=0, escalated=0)
     pc.LAUNCHES = 0
     sc.SW_LAUNCHES = 0
@@ -774,8 +807,8 @@ def call_leg(label, fasta, bams, outdir, extra, env=None):
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(buf):
-            rc = cli.main(["call", "-t", "1", "-r", fasta, "-b", *bams,
-                           "-o", outdir, *extra])
+            rc = cli.main([mode, "-t", str(threads), "-r", fasta, "-b",
+                           *bams, "-o", outdir, *extra])
     finally:
         engine.compute_works_likelihoods = compute
         sc.align_batch_cuda = align_batch
@@ -795,9 +828,10 @@ def call_leg(label, fasta, bams, outdir, extra, env=None):
         "outputs"]["genomes"]
     errors = {g: o["error"] for g, o in genomes.items() if "error" in o}
     check(not errors, f"{label}: genome errors {errors}")
-    (vcf,) = [o["vcf"] for o in genomes.values()]
+    (out,) = genomes.values()
     esc = dict(ph.ESCALATIONS)
-    leg = {"leg": label, "flags": extra, "wall_s": wall, **work,
+    leg = {"leg": label, "mode": mode, "threads": threads, "flags": extra,
+           "wall_s": wall, **work,
            "pairhmm_s": stages.get("pairhmm"),
            "stages_s": stages, "launches": launches,
            "dispatch": dict(lk.DISPATCH_COUNTS),
@@ -808,7 +842,11 @@ def call_leg(label, fasta, bams, outdir, extra, env=None):
            "sw_batches": sw_work["batches"],
            "sw_device_batches": sw_work["device_batches"],
            "spans": work["batches"], "activity_spans": activity["spans"],
-           "env": env, "vcf": vcf}
+           "worker_counts": dict(pool.WORKER_COUNTS),
+           "span_reruns": pool.SPAN_RERUNS["spans"],
+           "workers": sorted(pool.WORKER_REPORTS.values(),
+                             key=lambda r: r["wid"]),
+           "env": env, "vcf": out["vcf"], "files": output_files(out)}
     return leg, largest["pairs"], sw_largest["pairs"], activity["span"]
 
 
@@ -887,7 +925,189 @@ def call_phase(root):
          vcfs_identical=[list(p) for p in SAME_VCF],
          **{f"{k}_wall_s": leg["wall_s"] for k, leg in legs.items()},
          **{f"{k}_pairhmm_s": leg["pairhmm_s"] for k, leg in legs.items()})
-    return gpu, legs["gpu_sw"], batch, sw_batch, span, (fasta, bams, sg)
+    return legs, batch, sw_batch, span, (fasta, bams, sg)
+
+
+def output_files(out: dict) -> dict:
+    """{file name: path} of every file a genome's run wrote: the VCF, the
+    ANI tables and, in genotype mode, the strain coverages and FASTAs."""
+    paths = [out["vcf"], *out.get("ani", {}).values(),
+             out.get("strain_coverages"), *out.get("strain_fastas", [])]
+    return {os.path.basename(p): p for p in paths if p}
+
+
+def same_files(a: dict, b: dict) -> list:
+    """Names of the files that differ between two runs' outputs (a file
+    only one run wrote differs)."""
+    def read(path):
+        with open(path, "rb") as fh:
+            return fh.read()
+    return sorted(n for n in a.keys() | b.keys()
+                  if n not in a or n not in b or read(a[n]) != read(b[n]))
+
+
+def card_processes() -> list:
+    """The card's compute processes as nvidia-smi lists them (pids of the
+    host's namespace, not this machine's)."""
+    import subprocess
+    res = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(res.returncode == 0, f"nvidia-smi: {res.stderr.strip()}")
+    return [line.strip() for line in res.stdout.splitlines() if line.strip()]
+
+
+def _hold_a_context(opened, release):
+    """Child of the nvidia-smi control: opens a CUDA context and holds it
+    until ``release`` is set."""
+    import torch
+    torch.ones(1, device="cuda")
+    torch.cuda.synchronize()
+    opened.set()
+    release.wait(120)
+
+
+def card_processes_with_a_child() -> list:
+    """nvidia-smi's list while a spawned child holds a context of its own:
+    the control that shows a worker with a context would be listed."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    opened, release = ctx.Event(), ctx.Event()
+    child = ctx.Process(target=_hold_a_context, args=(opened, release))
+    child.start()
+    try:
+        check(opened.wait(120), "the control child opened no context")
+        return card_processes()
+    finally:
+        release.set()
+        child.join(60)
+        if child.is_alive():
+            child.terminate()
+            child.join(10)
+
+
+def pool_phase(root, fasta, bams, legs) -> dict:
+    """The -t 4 legs against their -t 1 legs (see the module docstring)."""
+    out = {}
+    for label, base in POOL_LEGS:
+        ref = legs[base]
+        leg, *_ = call_leg(label, fasta, bams, os.path.join(root, label),
+                           LEG_FLAGS[base], threads=POOL_THREADS)
+        diff = same_files(ref["files"], leg["files"])
+        check(not diff, f"{label}: {diff} differ from the {base} leg's")
+        on_card = base.startswith("gpu")
+        dispatch = leg["dispatch"]
+        # a span rerun with the deletions carried into it is one more pair
+        # batch (on the card or, under --force-cpu, on a worker's host) and
+        # more SW pairs and checked rows than the -t 1 leg has
+        reruns = leg["span_reruns"]
+        same = (lambda a, b: a == b) if reruns == 0 else \
+            (lambda a, b: a >= b)
+        check(leg["launches"] == ref["launches"] + (reruns if on_card else 0)
+              and dispatch["remote"]
+              == (ref["spans"] + reruns if on_card else 0)
+              and dispatch["host"]
+              == ref["dispatch"]["host"] + (0 if on_card else reruns)
+              and dispatch["device"] == 0
+              and leg["worker_counts"]["lk_batches"] == dispatch["remote"],
+              f"{label}: K2 launches {leg['launches']} (-t 1: "
+              f"{ref['launches']}), dispatch {dispatch}, workers sent "
+              f"{leg['worker_counts']}; -t 1 spans {ref['spans']}, "
+              f"{reruns} reruns")
+        check(same(leg["sw_launches"], ref["sw_launches"])
+              and all(same(leg["sw_counts"][k], n)
+                      for k, n in ref["sw_counts"].items())
+              and (leg["worker_counts"]["sw_batches"] > 0)
+              == ("--pallas-sw" in ref["flags"]),
+              f"{label}: SW launches {leg['sw_launches']} (-t 1: "
+              f"{ref['sw_launches']}), routes {leg['sw_counts']} (-t 1: "
+              f"{ref['sw_counts']}), workers sent {leg['worker_counts']}, "
+              f"{reruns} reruns")
+        check(same(leg["checked"], ref["checked"])
+              and (reruns > 0 or leg["escalated"] == ref["escalated"]),
+              f"{label}: escalations {leg['escalated']}/{leg['checked']}, "
+              f"-t 1 {ref['escalated']}/{ref['checked']}, {reruns} reruns")
+        workers = leg["workers"]
+        check(workers and all(
+            not (w["torch_imported"] or w["cuda_initialized"]
+                 or w["foreign_modules"]) for w in workers),
+              f"{label}: worker reports {workers}")
+        emit("pool", leg=label, t1_leg=base, threads=POOL_THREADS,
+             wall_s=leg["wall_s"], t1_wall_s=ref["wall_s"],
+             spawn_s=max(w["spawn_s"] for w in workers),
+             workers_reporting=len(workers),
+             pairhmm_s=leg["pairhmm_s"], t1_pairhmm_s=ref["pairhmm_s"],
+             stages_s=leg["stages_s"], t1_stages_s=ref["stages_s"],
+             escalation_share=leg["escalation_share"],
+             launches=leg["launches"], sw_launches=leg["sw_launches"],
+             span_reruns=reruns, dispatch=dispatch, sw_counts=leg["sw_counts"],
+             worker_counts=leg["worker_counts"], files_identical=sorted(
+                 leg["files"]))
+        out[label] = leg
+    out["default_cli"] = default_cli_leg(root, fasta, bams,
+                                         legs["gpu"]["vcf"])
+    # the default card leg's workers are alive and idle: the card must
+    # list the parent alone; the control shows a second context is seen
+    alone = card_processes()
+    check(len(alone) == 1, f"nvidia-smi lists {alone} with the pool's "
+          "workers alive: a worker holds a context")
+    with_child = card_processes_with_a_child()
+    emit("pool_card", parent_pid=os.getpid(), listed=alone,
+         listed_with_a_context_child=with_child)
+    check(len(with_child) == 2, f"nvidia-smi lists {with_child} while a "
+          "child holds a context: it cannot show a worker's context")
+    return out
+
+
+def default_cli_leg(root, fasta, bams, want_vcf) -> dict:
+    """The user's command line as it stands, `python3 -m
+    lorikeet_tpu_torch.cli call -r REF -b BAM... -o OUT`, in a process of
+    its own: the default -t 8 (capped at the cores) on the card.  Its VCF
+    must be the -t 1 default card leg's."""
+    import subprocess
+    outdir = os.path.join(root, "default_cli")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "lorikeet_tpu_torch.cli", "call", "-r", fasta,
+         "-b", *bams, "-o", outdir], capture_output=True, text=True,
+        timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0, f"default cli: exit {res.returncode}: "
+          f"{res.stderr[-2000:]}")
+    (out,) = json.loads(res.stdout.strip().splitlines()[-1])[
+        "outputs"]["genomes"].values()
+    check("error" not in out, f"default cli: {out}")
+    with open(out["vcf"], "rb") as a, open(want_vcf, "rb") as b:
+        check(a.read() == b.read(), "default cli: the VCF is not the -t 1 "
+              "card leg's")
+    leg = {"wall_s": wall, "threads": min(8, os.cpu_count() or 8)}
+    emit("default_cli", **leg)
+    return leg
+
+
+def genotype_phase(root, fasta, bams) -> dict:
+    """`genotype` on the card at -t 1 and at -t 4: the same files."""
+    g1, *_ = call_leg("genotype_t1", fasta, bams,
+                      os.path.join(root, "genotype_t1"), [],
+                      mode="genotype")
+    g4, *_ = call_leg("genotype_t4", fasta, bams,
+                      os.path.join(root, "genotype_t4"), [],
+                      threads=POOL_THREADS, mode="genotype")
+    diff = same_files(g1["files"], g4["files"])
+    check(not diff, f"genotype -t 4: {diff} differ from -t 1")
+    check(len(g1["files"]) >= 5, f"genotype wrote {sorted(g1['files'])}")
+    reruns = g4["span_reruns"]
+    check(g1["launches"] + reruns == g4["launches"] > 0
+          and g4["dispatch"]["remote"] == g1["spans"] + reruns
+          and g1["dispatch"]["host"] == g4["dispatch"]["host"] == 0,
+          f"genotype: launches {g1['launches']} / {g4['launches']}, "
+          f"dispatch {g1['dispatch']} / {g4['dispatch']}, {reruns} reruns")
+    out = {"files": sorted(g1["files"]), "t1_wall_s": g1["wall_s"],
+           "t4_wall_s": g4["wall_s"], "launches": g4["launches"],
+           "remote": g4["dispatch"]["remote"], "span_reruns": reruns,
+           "stages_s": g4["stages_s"], "t1_stages_s": g1["stages_s"]}
+    emit("genotype", **out)
+    return out
 
 
 def sw_main_path_phase(pairs, dev) -> dict:
@@ -903,19 +1123,20 @@ def sw_main_path_phase(pairs, dev) -> dict:
                     phase="sw_main_path")
 
 
-def trace_phase(root, fasta, bams, sites, label):
-    """The card leg ``label`` once more under the profiler (--profile-dir):
-    how much of the run the card is busy.  It runs last, since the
-    profiler's hooks can slow later launches; the timed legs run
+def trace_phase(root, fasta, bams, sites, label, threads=1):
+    """The card leg ``label`` once more under the profiler (--profile-dir),
+    at -t ``threads``: how much of the run the card is busy.  It runs last,
+    since the profiler's hooks can slow later launches; the timed legs run
     untraced."""
-    prof = os.path.join(root, f"prof_{label}")
-    traced, *_ = call_leg(f"{label}_traced", fasta, bams,
-                          os.path.join(root, f"traced_{label}"),
-                          [*LEG_FLAGS[label], "--profile-dir", prof])
+    prof = os.path.join(root, f"prof_{label}_t{threads}")
+    traced, *_ = call_leg(f"{label}_t{threads}_traced", fasta, bams,
+                          os.path.join(root, f"traced_{label}_t{threads}"),
+                          [*LEG_FLAGS[label], "--profile-dir", prof],
+                          threads=threads)
     busy = device_busy(os.path.join(prof, "trace.json"), traced["wall_s"])
     check(read_sites(traced["vcf"]) == sites, f"traced {label} leg calls "
           "differ")
-    emit("trace", leg=label, **busy)
+    emit("trace", leg=label, threads=threads, **busy)
 
 
 def device_busy(trace_path: str, wall_s: float) -> dict:
@@ -981,8 +1202,12 @@ def main() -> int:
     sw_checks = sw_kernel_phase(rng, dev)
 
     from lorikeet_tpu_torch.ops import pairhmm_cuda as pc
+    from lorikeet_tpu_torch.parallel import pool
     with tempfile.TemporaryDirectory() as root:
-        gpu, gpu_sw, batch, sw_batch, span, dataset = call_phase(root)
+        legs, batch, sw_batch, span, dataset = call_phase(root)
+        gpu, gpu_sw = legs["gpu"], legs["gpu_sw"]
+        pool_phase(root, *dataset[:2], legs)
+        genotype_phase(root, *dataset[:2])
         # the main path's largest batches, replayed after the counted run:
         # each kernel at the shapes the main path gives it
         main_batch = kernel_phase("main_path", batch, dev, timed=True)
@@ -998,6 +1223,8 @@ def main() -> int:
         check(flat_launches > 0, "the flat kernel's path launched no kernel")
         for label in ("gpu", "gpu_sw"):
             trace_phase(root, *dataset, label)
+        trace_phase(root, *dataset, "gpu", threads=POOL_THREADS)
+        pool.shutdown_pool()
     checks.append(main_batch)
     flat_checks.append(flat_main)
     sw_checks.append(sw_main)

@@ -428,6 +428,11 @@ class GenotypingEngine:
         # emitted upstream deletions, in traversal order
         # (genotyping_engine.rs record_deletions / upstream_deletions_loc)
         self._upstream_dels = []
+        # (tid, start) of every site checked against them, when a list: a
+        # span worker reports it so that the parent can tell whether the
+        # deletions of the spans before would have covered a site there
+        # (parallel/pool.py carry_deletions)
+        self.deletion_checks = None
 
     def _forced_alleles(self, vc: VariantContext, given_alleles) -> set:
         """Alt alleles of vc exactly matching a given (features-VCF) context
@@ -451,6 +456,8 @@ class GenotypingEngine:
         """True when an emitted deletion strictly upstream spans vc.start
         (genotyping_engine.rs is_vc_covered_by_deletion; same-start
         deletions deliberately do not count)."""
+        if self.deletion_checks is not None:
+            self.deletion_checks.append((vc.tid, vc.start))
         self._upstream_dels = [
             (tid, s, e) for tid, s, e in self._upstream_dels
             if tid == vc.tid and e >= vc.start]

@@ -1,8 +1,8 @@
 """Read x allele likelihood machinery and the pair-HMM likelihood engine.
 
 Counterpart of lorikeet_tpu/calling/likelihoods.py without the TPU-only
-machinery (compile-bucket prewarm, host/device cost router, wire codec,
-pool "remote" leg).  Contracts:
+machinery (compile-bucket prewarm, host/device cost router, wire codec);
+the pool's "remote" leg is parallel/pool.py.  Contracts:
 - allele_likelihoods.rs: per-sample [alleles, reads] log10 matrices;
   normalize_likelihoods caps each read's worst value at best + cap (:378-447);
   marginalize takes the max over the haplotypes backing each allele (:633);
@@ -545,8 +545,10 @@ def build_pairs(haplotypes: list, reads_by_sample: dict,
 
 #: batches dispatched to the device vs the host kernel in this process (a
 #: silent device bypass must be visible in the stage split, not inferred
-#: from timings)
-DISPATCH_COUNTS = {"device": 0, "host": 0}
+#: from timings); "remote" counts the pool workers' batches that the
+#: parent's device service ran (parallel.pool), "host" includes the
+#: workers' own, added as their results come back
+DISPATCH_COUNTS = {"device": 0, "host": 0, "remote": 0}
 
 #: torch device the ``use_cuda`` path runs on.  Tests set it to "cpu" to run
 #: the kernel's plain torch version through the same path.

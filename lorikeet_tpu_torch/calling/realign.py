@@ -6,7 +6,8 @@ each read is Smith-Waterman-aligned to the haplotype with its best
 likelihood and the alignment is composed through the haplotype-vs-reference
 CIGAR; the best-haplotype search comes from the port's likelihoods.  The
 SW runs on the native host aligner, or batched on the CUDA kernel
-(ops/sw_cuda.py) with ``use_cuda_sw``, bit-identical either way.
+(ops/sw_cuda.py) with ``use_cuda_sw``, bit-identical either way; in a
+``-t`` pool worker that batch goes to the parent's card (DEVICE_SW_BATCH).
 """
 from __future__ import annotations
 
@@ -19,6 +20,11 @@ from lorikeet_tpu_torch.ops.smith_waterman import (
 )
 from lorikeet_tpu_torch.calling.likelihoods import search_best_alleles
 from lorikeet_tpu_torch.utils.cigar import CigarBuilder
+
+#: runs a ``use_cuda_sw`` batch: None means ops.sw_cuda.align_batch_cuda in
+#: this process; a pool worker, which holds no card, sets a function that
+#: sends the batch to the parent's device service (parallel/pool.py)
+DEVICE_SW_BATCH = None
 
 
 def _padded_hap_cigar(hap_cigar: list) -> list:
@@ -141,8 +147,10 @@ def realign_reads_to_best_haplotype(likelihoods, haplotypes,
         return 0
 
     if use_cuda_sw:
-        from lorikeet_tpu_torch.ops.sw_cuda import align_batch_cuda
-        aligned = align_batch_cuda(
+        run = DEVICE_SW_BATCH
+        if run is None:
+            from lorikeet_tpu_torch.ops.sw_cuda import align_batch_cuda as run
+        aligned = run(
             [(hap.bases, core.tobytes()) for _, _, hap, _, _, core in jobs],
             ALIGNMENT_TO_BEST_HAPLOTYPE_SW_PARAMETERS,
             OverhangStrategy.SOFTCLIP)

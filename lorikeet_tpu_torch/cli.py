@@ -1,7 +1,9 @@
 """Command-line interface of the port.
 
-``python -m lorikeet_tpu_torch.cli call -t 1 -r REF -b BAM... -o OUT`` runs
-the `call` path with the pair-HMM on the CUDA kernel.  The argument parser
+``python -m lorikeet_tpu_torch.cli call -r REF -b BAM... -o OUT`` runs the
+`call` path with the pair-HMM on the CUDA kernel; ``-t N`` (default 8)
+spreads the chunk spans over N CPU worker processes whose pair-HMM batches
+the parent's card runs, as the JAX CLI's ``-t`` does.  The argument parser
 and the parser-side helpers are in ``cli_parser``; this module owns the
 entry point and fills the configs, which point at the port's processing
 and map the device flags: the pair-HMM runs on the card (an error without

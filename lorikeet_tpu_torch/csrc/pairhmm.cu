@@ -5,7 +5,7 @@
 // (read, haplotype) pair the log10 forward likelihood over an anti-diagonal
 // wavefront, f32 with a power-of-two renormalisation every GROUP = 8
 // diagonals.  grouped_kernel takes the grouped tables of
-// ops/pairhmm_cuda.py:pack_grouped_inputs: table block b sweeps the 32 read
+// ops/pairhmm_pack.py:prepare_grouped_jobs: table block b sweeps the 32 read
 // rows of tile tile_tab[b] against haplotype hap_tab[b]; out[b * 32 + r] is
 // the result for read row r of that tile.  flat_kernel takes one row per
 // pair (pack_flat_inputs): read row p against haplotype row p, out[p].

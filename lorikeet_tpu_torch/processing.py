@@ -16,9 +16,11 @@ what changed is where the device comes in: the pair-HMM runs on the CUDA
 kernel unless ``cfg.use_cuda`` is False (resolved once, at
 _configure_devices; no card is then an error), activity profiling stays on
 the host unless LORIKEET_DEVICE_ACTIVITY=1 sends it through the device
-chain (parallel/pipeline.py), there is no device mesh and no compile
-prewarm, and the ``-t`` span-worker pool (lorikeet_tpu/parallel/pool.py) is
-not ported: start_engine asks for ``-t 1``.
+chain (parallel/pipeline.py), and there is no device mesh and no compile
+prewarm.  ``-t`` above 1 fans the chunk spans out over the span-worker pool
+(parallel/pool.py): CPU workers, with the parent's card serving their
+pair-HMM and SW batches.  The device activity chain is not served to pool
+workers, so start_engine refuses it together with ``-t`` above 1.
 """
 from __future__ import annotations
 
@@ -148,15 +150,15 @@ def call_contig(
     engine: HaplotypeCallerEngine = None,
     limit=None,                 # optional (start, end) restriction
     chunk_threads: int = 1,
-    chunk_processes: int = 1,
+    pool=None,                  # parallel.pool.SpanWorkerPool
 ) -> ContigResult:
     """Chunked contig loop: large contigs are processed in outer chunks
     of ~250kb/samples with a halo (haplotype_caller_engine.rs:417,443-470
     sizing); per-chunk results (calls, depth RLE) concatenate exactly.
     ``chunk_threads`` parallelizes the chunk loop (the reference's inner
     rayon chunk parallelism) when the contig loop itself is serial;
-    ``chunk_processes`` does the same with worker PROCESSES for the
-    CPU-only path, where the GIL serializes threaded chunk work."""
+    ``pool`` does the same with the span-worker PROCESSES of
+    parallel/pool.py, where the GIL serializes threaded chunk work."""
     cfg = cfg or CallerConfig()
     engine = engine or HaplotypeCallerEngine(cfg)
     length = fasta.length(contig_name)
@@ -168,22 +170,17 @@ def call_contig(
         # (same empty shape as the min-contig-size skip)
         return ContigResult(tid=0)
     chunk_size = _chunk_size(n_samples, cfg)
-    if hi - lo <= chunk_size:
+    if hi - lo <= chunk_size and pool is None:
         return _call_span(fasta, bams, contig_name, cfg, engine, lo, hi)
-    spans = _contig_spans(lo, hi, chunk_size, cfg)
-    if chunk_processes > 1 and len(spans) > 1:
-        # one PROCESS per chunk wave (rayon-chunk analogue with real
-        # multi-core scaling; each worker decodes the BAMs once and caches
-        # them across its chunks)
-        import multiprocessing as mp
-        from concurrent.futures import ProcessPoolExecutor
-        payloads = [(fasta.path, [b.path for b in bams], contig_name, cfg,
-                     sp) for sp in spans]
-        ctx = mp.get_context("spawn")
-        with ProcessPoolExecutor(
-                max_workers=min(chunk_processes, len(spans)),
-                mp_context=ctx) as pool:
-            parts = list(pool.map(_span_task, payloads))
+    spans = ([(lo, hi, lo, hi)] if hi - lo <= chunk_size
+             else _contig_spans(lo, hi, chunk_size, cfg))
+    if pool is not None:
+        # persistent span-worker pool (parallel.pool): spans fan out over
+        # long-lived CPU workers; with a device service the parent's card
+        # serves every worker's pair-HMM (and --pallas-sw SW) batches
+        ids = [pool.submit(contig_name, sp, fasta.path,
+                           [b.path for b in bams]) for sp in spans]
+        parts = pool.gather_contig(ids)
     elif chunk_threads > 1 and len(spans) > 1 \
             and not any(getattr(b, "is_streaming", False) for b in bams):
         for b in bams:
@@ -296,32 +293,6 @@ def _cpu_only_backend(cfg) -> bool:
     if getattr(cfg, "use_cuda_sw", False):
         return False
     return getattr(cfg, "use_cuda", None) is False
-
-
-_SPAN_WORKER_CACHE: dict = {}
-
-
-def _span_task(payload):
-    """Chunk-process worker: run one span CPU-only; readers and the engine
-    are cached per (fasta, bams, cfg-id) so a worker decodes each BAM once
-    across all the spans it drains."""
-    fasta_path, bam_paths, contig_name, cfg, sp = payload
-    # FORCE no card (not setdefault): spawned workers inherit the parent's
-    # environment and would otherwise all contend for the single card.
-    # Workers are CPU-only by design; the parent process owns the device.
-    os.environ["CUDA_VISIBLE_DEVICES"] = ""
-    key = (fasta_path, tuple(bam_paths))
-    state = _SPAN_WORKER_CACHE.get(key)
-    if state is None:
-        from lorikeet_tpu_torch.calling.engine import HaplotypeCallerEngine
-        state = (FastaReader(fasta_path),
-                 [open_bam(p, high_memory=getattr(cfg, "high_memory", False))
-                  for p in bam_paths],
-                 HaplotypeCallerEngine(cfg))
-        _SPAN_WORKER_CACHE.clear()
-        _SPAN_WORKER_CACHE[key] = state
-    fasta, bams, engine = state
-    return _call_span(fasta, bams, contig_name, cfg, engine, *sp)
 
 
 def _rle_concat(dst: list, src: list):
@@ -655,8 +626,7 @@ def _call_contigs(spec, fasta, bams, cfg, engine, limit,
 
     cfg_fp = _cfg_fingerprint(cfg) if checkpoint_dir else None
 
-    def _one(local_fasta, contig, chunk_threads=1, chunk_processes=1,
-             local_bams=None):
+    def _one(local_fasta, contig, chunk_threads=1, local_bams=None):
         local_bams = bams if local_bams is None else local_bams
         # contigs below --min-contig-size are skipped outright
         # (haplotype_caller_engine.rs:340,418 min_contig_length gate)
@@ -678,8 +648,7 @@ def _call_contigs(spec, fasta, bams, cfg, engine, limit,
                 except Exception:  # noqa: BLE001 — corrupt: recompute
                     pass
         result = call_contig(local_fasta, local_bams, contig, cfg, engine,
-                             limit=limit, chunk_threads=chunk_threads,
-                             chunk_processes=chunk_processes)
+                             limit=limit, chunk_threads=chunk_threads)
         if ck_path is not None:
             import pickle
             os.makedirs(checkpoint_dir, exist_ok=True)
@@ -689,8 +658,30 @@ def _call_contigs(spec, fasta, bams, cfg, engine, limit,
             os.replace(tmp, ck_path)
         return result
 
+    from multiprocessing import current_process
     streaming = any(getattr(b, "is_streaming", False) for b in bams)
+    requested = getattr(cfg, "threads", 1) or 1
     inner = int(os.environ.get("LORIKEET_CHUNK_THREADS", "1"))
+    # a process of a pool (the per-genome processes, a span worker) never
+    # starts a pool of its own
+    if requested > 1 and inner <= 1 \
+            and current_process().name == "MainProcess" \
+            and os.environ.get("LORIKEET_SPAN_POOL", "1") != "0" \
+            and _pool_worthwhile(spec, fasta, bams, cfg, limit):
+        # persistent span-worker pool: -t workers survive across contigs
+        # AND genomes (a spawn and a BAM decode each), all contigs' chunk
+        # spans fan out together, and when the parent holds the card its
+        # device service runs the workers' pair-HMM batches (the rayon
+        # region fan-out of assembly_region_walker.rs:139-141, with the
+        # card as a shared service instead of a contended resource)
+        from lorikeet_tpu_torch.parallel.pool import get_pool
+        # workers are full processes (not rayon threads): oversubscribing
+        # cores just multiplies startup + decode; clamp to the box
+        n_pool = min(requested, os.cpu_count() or requested)
+        pool = get_pool(spec.fasta, [b.path for b in bams], cfg, n_pool,
+                        device_service=not _cpu_only_backend(cfg))
+        return _call_contigs_pooled(spec, fasta, bams, cfg, limit,
+                                    checkpoint_dir, cfg_fp, min_size, pool)
     if n_workers <= 1 or len(spec.contigs) <= 1:
         # chunk-level threading exists (call_contig chunk_threads) but the
         # chunk hot path is GIL-bound Python — measured SLOWER threaded
@@ -721,6 +712,69 @@ def _call_contigs(spec, fasta, bams, cfg, engine, limit,
     from concurrent.futures import ThreadPoolExecutor
     with ThreadPoolExecutor(n_workers) as ex:
         return list(ex.map(work, spec.contigs))
+
+
+def _pool_worthwhile(spec, fasta, bams, cfg, limit) -> bool:
+    """Worker processes cost a spawn and a BAM decode each: only build a
+    pool when the genome has enough chunk work to amortize it, unless one
+    is already alive (spawn already paid; tiny follow-on genomes ride it
+    for free)."""
+    from lorikeet_tpu_torch.parallel.pool import pool_alive
+    if pool_alive():
+        return True
+    units = _genome_units(spec, fasta, cfg, len(bams), limit)
+    total = sum(sp[1] - sp[0] for _, sp in units)
+    return len(units) >= 2 and total >= 500_000
+
+
+def _call_contigs_pooled(spec, fasta, bams, cfg, limit, checkpoint_dir,
+                         cfg_fp, min_size, pool) -> list:
+    """All contigs' chunk spans submitted to the persistent pool up front,
+    gathered + checkpointed per contig afterwards (keeps every worker busy
+    across contig boundaries)."""
+    import pickle
+    n_samples = len(bams)
+    chunk_size = _chunk_size(n_samples, cfg)
+    results = [None] * len(spec.contigs)
+    pending = []                      # (contig_idx, ck_path, task_ids)
+    for i, contig in enumerate(spec.contigs):
+        if min_size and fasta.length(contig) < min_size:
+            results[i] = ContigResult(tid=0)
+            continue
+        ck_path = None
+        if checkpoint_dir is not None and limit is None:
+            ck_path = os.path.join(
+                checkpoint_dir,
+                _chunk_key(contig, bams, cfg_fp, spec.fasta) + ".pkl")
+            if os.path.exists(ck_path):
+                try:
+                    with open(ck_path, "rb") as fh:
+                        results[i] = pickle.load(fh)
+                    continue
+                except Exception:  # noqa: BLE001 — corrupt: recompute
+                    pass
+        length = fasta.length(contig)
+        lo, hi = (0, length) if limit is None else (max(0, limit[0]),
+                                                    min(length, limit[1]))
+        if hi <= lo:
+            results[i] = ContigResult(tid=0)
+            continue
+        spans = ([(lo, hi, lo, hi)] if hi - lo <= chunk_size
+                 else _contig_spans(lo, hi, chunk_size, cfg))
+        pending.append((i, ck_path,
+                        [pool.submit(contig, sp, spec.fasta,
+                                     [b.path for b in bams])
+                         for sp in spans]))
+    for i, ck_path, ids in pending:
+        result = _merge_parts(pool.gather_contig(ids), n_samples)
+        if ck_path is not None:
+            os.makedirs(checkpoint_dir, exist_ok=True)
+            tmp = ck_path + ".tmp"
+            with open(tmp, "wb") as fh:
+                pickle.dump(result, fh)
+            os.replace(tmp, ck_path)
+        results[i] = result
+    return results
 
 
 def run_genome(spec: GenomeSpec, bams: list, genome_dir: str,
@@ -1016,12 +1070,14 @@ def start_engine(mode: str, references: list, bam_paths: list,
     per genome, artifact-presence caching unless `force`
     (lorikeet_engine.rs:135-157)."""
     cfg = cfg or CallerConfig()
-    if (getattr(cfg, "threads", 1) or 1) > 1:
+    if (getattr(cfg, "threads", 1) or 1) > 1 and _device_activity(cfg):
         # checked here, before the per-genome try in _process_genome could
-        # turn it into a per-genome error record
+        # turn it into a per-genome error record: pool workers hold no
+        # card, and the parent's service does not run the activity chain
         raise ValueError(
-            f"-t {cfg.threads}: the span-worker pool is not ported yet; "
-            "pass -t 1")
+            f"-t {cfg.threads} with LORIKEET_DEVICE_ACTIVITY=1: the device "
+            "activity chain does not run in -t pool workers; pass -t 1 or "
+            "unset LORIKEET_DEVICE_ACTIVITY")
     os.makedirs(output_dir, exist_ok=True)
     _configure_devices(cfg)
     specs = discover_genomes(references, genome_dir, extension)

@@ -173,12 +173,29 @@ def test_config_field_set_parity():
         assert getattr(mine, RENAMED.get(n, n)) == getattr(defaults, n), n
 
 
-def test_start_engine_rejects_threads_up_front(fixture3k, tmp_path):
+def test_start_engine_rejects_threads_up_front(fixture3k, tmp_path,
+                                              monkeypatch):
+    """-t above 1 with the device activity chain is refused before any
+    output directory is made: pool workers hold no card."""
     fasta, bams, _ = fixture3k
-    cfg = tengine.CallerConfig(use_cuda=False, threads=8)
-    with pytest.raises(ValueError, match="-t 1"):
+    monkeypatch.setenv("LORIKEET_DEVICE_ACTIVITY", "1")
+    cfg = tengine.CallerConfig(use_cuda=False, threads=2)
+    with pytest.raises(ValueError, match="LORIKEET_DEVICE_ACTIVITY"):
         tproc.start_engine("call", [fasta], bams, str(tmp_path / "o"), cfg)
     assert not (tmp_path / "o").exists()
+
+
+def test_start_engine_threads_8_writes_the_t1_vcf(fixture3k, tmp_path):
+    """The CLI's default -t 8 is accepted and writes the -t 1 VCF."""
+    fasta, bams, _ = fixture3k
+    out = {}
+    for t in (1, 8):
+        res = tproc.start_engine(
+            "call", [fasta], bams, str(tmp_path / f"t{t}"),
+            tengine.CallerConfig(use_cuda=False, threads=t))
+        (out[t],) = [r["vcf"] for r in res.values()]
+    with open(out[1], "rb") as a, open(out[8], "rb") as b:
+        assert a.read() == b.read()
 
 
 def test_configure_devices(monkeypatch):

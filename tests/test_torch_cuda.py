@@ -77,7 +77,7 @@ def test_kernel_matches_plain_version(cuda, read_len):
     rng = np.random.default_rng(read_len)
     n_reads = 40 if read_len <= 700 else 2
     pairs = _region(rng, read_len, n_reads) + _region(rng, 60, 7, 2)
-    arrays, out_pos = pc.pack_grouped_inputs(pairs)
+    arrays, out_pos = pc.prepare_grouped_jobs(pairs)
     t = pc.to_tensors(arrays, cuda)
     launches = pc.LAUNCHES
     got = pc.pairhmm_grouped_cuda(t)
@@ -119,7 +119,7 @@ def test_grouped_kernel_pad_rows_and_odd_block_counts(cuda, read_len):
     table blocks, not a multiple of 4; read lengths from 1 base to
     ``read_len`` in one batch."""
     pairs = _pad_row_batch(np.random.default_rng(7000 + read_len), read_len)
-    arrays, out_pos = pc.pack_grouped_inputs(pairs)
+    arrays, out_pos = pc.prepare_grouped_jobs(pairs)
     assert arrays["tile_tab"].size == 11
     assert int((arrays["read_lens"] == 0).sum()) == 31 + 25
     t = pc.to_tensors(arrays, cuda)
@@ -134,9 +134,27 @@ def test_grouped_kernel_pad_rows_and_odd_block_counts(cuda, read_len):
     np.testing.assert_allclose(got[keep], want[keep], rtol=0, atol=TOL)
 
 
+def test_grouped_jobs_on_a_side_stream(cuda):
+    """The pool service's device half: two jobs enqueued on a stream of its
+    own before either is read back give the values of the one-call
+    forward on the current stream, bit for bit, one launch each."""
+    rng = np.random.default_rng(77)
+    batches = [_region(rng, 100) + _region(rng, 250, 9, 3),
+               _pad_row_batch(rng, 511)]
+    want = [pc.pairhmm_forward_grouped(p, cuda) for p in batches]
+    stream = torch.cuda.Stream(cuda)
+    launches = pc.LAUNCHES
+    handles = [pc.enqueue_grouped_jobs(*pc.prepare_grouped_jobs(p), cuda,
+                                       stream) for p in batches]
+    assert pc.LAUNCHES == launches + 2
+    for handle, w in zip(handles, want):
+        got = pc.readback_grouped(handle)
+        assert got.dtype == np.float64 and np.array_equal(got, w)
+
+
 def test_kernel_rejects_bad_inputs(cuda):
     pairs = _region(np.random.default_rng(1), 80, 3, 2)
-    arrays, _ = pc.pack_grouped_inputs(pairs)
+    arrays, _ = pc.prepare_grouped_jobs(pairs)
     t = pc.to_tensors(arrays, cuda)
     t["quals"] = t["quals"].to(torch.int32)
     with pytest.raises(ValueError, match="quals"):

@@ -194,6 +194,6 @@ def test_grouped_tables_pass_their_own_check():
     """The flat operands' ``order`` is not asked of the grouped tables."""
     rng = np.random.default_rng(6)
     pairs = [_pair(rng, 50, 120) for _ in range(5)]
-    t = pc.to_tensors(pc.pack_grouped_inputs(pairs)[0], "cpu")
+    t = pc.to_tensors(pc.prepare_grouped_jobs(pairs)[0], "cpu")
     pc._check_inputs(t)
     assert "order" not in t

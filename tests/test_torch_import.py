@@ -163,8 +163,8 @@ ORIGINAL_DIR = os.path.join(REPO, "lorikeet_tpu")
 NOT_COPIES = {
     "cli.py", "processing.py", "ops/pairhmm.py", "calling/engine.py",
     "calling/likelihoods.py", "calling/realign.py", "parallel/hosts.py",
-    "parallel/pipeline.py", "parallel/sharding.py", "native/__init__.py",
-    "utils/progress.py",
+    "parallel/pipeline.py", "parallel/pool.py", "parallel/sharding.py",
+    "native/__init__.py", "utils/progress.py",
 }
 
 

@@ -149,7 +149,7 @@ def test_twin_matches_jax_interpret_kernel(seed):
 
 def test_duplicates_share_one_cell_and_long_read_escalates():
     pairs = _long_duplicate_pairs()
-    arrays, out_pos = pc.pack_grouped_inputs(pairs)
+    arrays, out_pos = pc.prepare_grouped_jobs(pairs)
     assert out_pos[0] == out_pos[1] == out_pos[2] != out_pos[3]
     got = pc.pairhmm_forward_grouped(pairs, "cpu")
     assert np.all(np.isfinite(got)) and got[0] == got[1] == got[2]
@@ -161,7 +161,7 @@ def test_packer_tables():
     """One read tile per group of <= 32 reads, blocks tile-major over the
     group's haps, pad rows of length 0, each read and hap packed once."""
     pairs = _region_pairs(7)
-    arrays, out_pos = pc.pack_grouped_inputs(pairs)
+    arrays, out_pos = pc.prepare_grouped_jobs(pairs)
     reads = {id(p[1]) for p in pairs}
     haps = {id(p[0]) for p in pairs}
     assert arrays["haps"].shape[0] == len(haps) == arrays["hap_lens"].size
@@ -235,7 +235,7 @@ def test_escalation_counter_counts_suspect_rows():
 
 def test_wrapper_takes_plain_version_only_on_cpu(monkeypatch):
     pairs = _region_pairs(5)[:40]
-    arrays, out_pos = pc.pack_grouped_inputs(pairs)
+    arrays, out_pos = pc.prepare_grouped_jobs(pairs)
     t = pc.to_tensors(arrays, "cpu")
     launches = pc.LAUNCHES
     got = pc.pairhmm_grouped_cuda(t)
@@ -361,7 +361,7 @@ def test_packer_values_match_jax_grouped_path(case):
 @pytest.mark.parametrize("case", sorted(PACKER_CASES))
 def test_packer_ships_each_read_and_hap_once(case):
     pairs = PACKER_CASES[case]()
-    arrays, out_pos = pc.pack_grouped_inputs(pairs)
+    arrays, out_pos = pc.prepare_grouped_jobs(pairs)
     reads = {id(p[1]): p for p in pairs}
     haps = {id(p[0]): p[0] for p in pairs}
     tile = pc.GROUP_BLOCK_B
@@ -393,7 +393,7 @@ def test_packer_ships_each_read_and_hap_once(case):
 
 def test_shared_read_tiles_against_the_union():
     pairs = _shared_read_pairs()
-    arrays, out_pos = pc.pack_grouped_inputs(pairs)
+    arrays, out_pos = pc.prepare_grouped_jobs(pairs)
     shared = pairs[4 * 3][1]                  # fifth read of region a
     assert sum(p[1] is shared for p in pairs) == 5
     rows = {int(arrays["tile_tab"][p // 32]) * 32 + int(p % 32)
