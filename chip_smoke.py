@@ -65,6 +65,18 @@ Phases, one JSON line each; any failure exits non-zero without the final
 8. genotype  `genotype` at -t 1 and -t 4 on the card, same genome: every
            output file (VCF, strain coverages, the three ANI tables, the
            strain FASTAs) identical.
+8b. devices  `call` over a device list of two (--devices auto with the card
+           enumeration replaced: the first two cards, or with one card the
+           first card twice, `cards_distinct: false`), same genome:
+           `gpu_2card` (-t 1, LORIKEET_DEVICE_ACTIVITY=0) writes the `gpu`
+           leg's files; `gpu_2card_act` (-t 1, the chain on by the JAX rule)
+           the `gpu_act` leg's sites, alleles and genotypes with QUAL within
+           0.1, every span through the chain; `gpu_2card_t4` (-t 4) the
+           `gpu` leg's files; `gpu_act_t4` (one card, -t 4,
+           LORIKEET_DEVICE_ACTIVITY=1) the `gpu_act` leg's files, every
+           span's chain an "act" request to the service.  On each two-card
+           leg both list positions launch K2 and no batch runs on a host;
+           no -t 4 worker imports torch.
 9. main_path  the largest pair-HMM batch of the first card leg, replayed:
            grouped kernel against the plain version, both timed; and the
            same batch one row per pair through the flat kernel
@@ -78,7 +90,8 @@ Phases, one JSON line each; any failure exits non-zero without the final
            the depth totals against numpy.
 12. activity  smoothed_activity_device on the longest span of the
            device-activity leg (its real gls and HQ means) against the host
-           active_probabilities + band_pass_smooth (atol 2e-3), timed.
+           active_probabilities + band_pass_smooth (atol 2e-3), timed; and
+           split over the two-card list (within 1e-5 of one card), timed.
 13. dryrun  parallel.dryrun.dryrun(1) on the card: the sharded activity
            step, the region-batch step and a small `call` over a planted SNP.
 14. trace  the default card leg, the --pallas-sw one and the -t 4 default
@@ -107,6 +120,7 @@ QUAL_TOL = 0.1           # GPU leg vs f64 leg (docs/benchmarks.md:292-298)
 MIN_RECALL = 0.99
 GENOME_KBP = 1000
 ACTIVITY_TOL = 2e-3      # device activity chain (f32) vs the host chain
+ACTIVITY_SPLIT_TOL = 1e-5  # the chain split by position vs on one card
 TIMED_RUNS = 7
 #: published peaks of one H100 SXM (NVIDIA's data sheet): device memory
 #: bytes/s, f32 operations/s outside the tensor cores, and int32
@@ -148,6 +162,16 @@ POOL_THREADS = 4
 #: order they run; the default card leg last, so that its workers are alive
 #: for the nvidia-smi reading and the genotype leg takes its pool
 POOL_LEGS = (("gpu_sw_t4", "gpu_sw"), ("f64_t4", "f64"), ("gpu_t4", "gpu"))
+#: the legs over a device list: (label, -t, two cards, environment, the leg
+#: whose outputs it must write, whether they must be byte-identical).  No
+#: variable set means LORIKEET_DEVICE_ACTIVITY is unset: the JAX rule
+#: decides (on over two cards at -t 1, off at -t 4)
+DEVICE_LEGS = (
+    ("gpu_2card", 1, True, {"LORIKEET_DEVICE_ACTIVITY": "0"}, "gpu", True),
+    ("gpu_2card_act", 1, True, {}, "gpu_act", False),
+    ("gpu_2card_t4", POOL_THREADS, True, {}, "gpu", True),
+    ("gpu_act_t4", POOL_THREADS, False, {"LORIKEET_DEVICE_ACTIVITY": "1"},
+     "gpu_act", True))
 
 
 def emit(phase: str, **fields):
@@ -465,9 +489,24 @@ def region_batch_phase(pairs, dev) -> dict:
     return out
 
 
+def one_card() -> list:
+    """The device list of the one-card legs: the first card."""
+    import torch
+    return [torch.device("cuda", 0)]
+
+
+def two_cards() -> list:
+    """The device list of the two-card legs: the first two cards, or the
+    first card twice on a machine with one."""
+    import torch
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", 0), torch.device("cuda", 1 if n > 1 else 0)]
+
+
 def activity_phase(span, dev) -> dict:
     """The device activity chain on one real span of the `call` run (the
-    arguments processing._call_span passed) against the host chain."""
+    arguments processing._call_span passed) against the host chain, on
+    one card and split over the two-card list."""
     import numpy as np
     import torch
 
@@ -477,7 +516,7 @@ def activity_phase(span, dev) -> dict:
     from lorikeet_tpu_torch.parallel.pipeline import smoothed_activity_device
 
     args, kwargs = span
-    kwargs = {**kwargs, "device": dev}
+    kwargs = {**kwargs, "devices": dev}
     gls, hq_mean, ploidy, het, het_std, conf = args
     prop = kwargs["max_prob_propagation"]
     got = smoothed_activity_device(*args, **kwargs)
@@ -496,10 +535,21 @@ def activity_phase(span, dev) -> dict:
     check(host.max() > 0.0, "activity: the span has no active position")
     ms = cuda_median_ms(lambda: smoothed_activity_device(*args, **kwargs),
                         runs=5)
+    cards = two_cards()
+    split_kwargs = {**kwargs, "devices": cards}
+    split = smoothed_activity_device(*args, **split_kwargs)
+    err_split = float(np.abs(split - got).max())
+    check(split.shape == got.shape and err_split <= ACTIVITY_SPLIT_TOL,
+          f"activity: split over {cards} vs one card {err_split}")
+    split_ms = cuda_median_ms(
+        lambda: smoothed_activity_device(*args, **split_kwargs), runs=5)
     out = {"samples": int(gls.shape[0]), "positions": int(gls.shape[1]),
            "active_positions": int((host > 0).sum()),
            "max_abs_err_vs_host": err, "ms": ms,
-           "host_ms": sorted(times)[1]}
+           "host_ms": sorted(times)[1], "two_card_ms": split_ms,
+           "max_abs_err_two_card_vs_one": err_split,
+           "cards": [str(c) for c in cards],
+           "cards_distinct": cards[0] != cards[1]}
     emit("activity", **out)
     return out
 
@@ -736,12 +786,15 @@ def read_sites(vcf):
 
 
 def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
-             mode="call"):
+             mode="call", cards=None):
     """One run of ``mode`` (`call` or `genotype`) through the CLI at -t
-    ``threads``, under the environment variables of ``env``; returns its
-    counters.  The counting wrappers below see the work of this process
-    only: at -t above 1 the workers' counters come back through the pool,
-    and the parent's service moves LAUNCHES, SW_LAUNCHES and SW_COUNTS."""
+    ``threads``, under the environment variables of ``env`` (None: unset),
+    with ``cards`` (default: the first card) in the place of the visible
+    cards that --devices auto takes; returns its counters.  The counting
+    wrappers below see the work of this process only: at -t above 1 the
+    workers' counters come back through the pool, and the parent's service
+    moves LAUNCHES, CARD_LAUNCHES, SW_LAUNCHES and SW_COUNTS."""
+
     from lorikeet_tpu_torch import cli
     from lorikeet_tpu_torch.calling import engine
     from lorikeet_tpu_torch.calling import likelihoods as lk
@@ -750,8 +803,10 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
     from lorikeet_tpu_torch.ops import sw_cuda as sc
     from lorikeet_tpu_torch.parallel import pipeline
     from lorikeet_tpu_torch.parallel import pool
+    from lorikeet_tpu_torch.parallel import sharding
     from lorikeet_tpu_torch.utils import progress
 
+    cards = list(cards or one_card())
     work = {"regions": 0, "batches": 0, "pairs": 0, "cells": 0}
     largest = {"cells": -1, "pairs": None}
     sw_work = {"batches": 0, "device_batches": 0}
@@ -788,19 +843,26 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
             largest.update(cells=cells, pairs=pairs)
         return compute(eng, works)
 
+    visible_cards = sharding.visible_cards
     engine.compute_works_likelihoods = counted
     sc.align_batch_cuda = sw_counted
     pipeline.smoothed_activity_device = activity_counted
+    sharding.visible_cards = lambda: cards
     env = dict(env or {})
     saved_env = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
+    for key, value in env.items():
+        if value is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = value
     progress.GLOBAL_STAGES = {}
     lk.DISPATCH_COUNTS.update(device=0, host=0, remote=0)
-    pool.WORKER_COUNTS.update(lk_batches=0, sw_batches=0)
+    pool.WORKER_COUNTS.update(dict.fromkeys(pool.WORKER_COUNTS, 0))
     pool.SPAN_RERUNS.update(spans=0)
     pool.WORKER_REPORTS.clear()
     ph.ESCALATIONS.update(checked=0, escalated=0)
     pc.LAUNCHES = 0
+    pc.CARD_LAUNCHES.clear()
     sc.SW_LAUNCHES = 0
     sc.SW_COUNTS.update(device=0, shortcut=0, scalar_long=0)
     buf = io.StringIO()
@@ -813,6 +875,7 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
         engine.compute_works_likelihoods = compute
         sc.align_batch_cuda = align_batch
         pipeline.smoothed_activity_device = smooth
+        sharding.visible_cards = visible_cards
         for key, old in saved_env.items():
             if old is None:
                 os.environ.pop(key, None)
@@ -820,6 +883,8 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
                 os.environ[key] = old
     wall = time.perf_counter() - t0
     launches = pc.LAUNCHES
+    card_launches = dict(pc.CARD_LAUNCHES)
+    devices = [str(d) for d in sharding.get_devices()]
     sw_launches = sc.SW_LAUNCHES
     stages = dict(progress.GLOBAL_STAGES)
     progress.GLOBAL_STAGES = None
@@ -834,6 +899,7 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
            "wall_s": wall, **work,
            "pairhmm_s": stages.get("pairhmm"),
            "stages_s": stages, "launches": launches,
+           "card_launches": card_launches, "devices": devices,
            "dispatch": dict(lk.DISPATCH_COUNTS),
            "escalated": esc["escalated"], "checked": esc["checked"],
            "escalation_share": (esc["escalated"] / esc["checked"]
@@ -1110,6 +1176,64 @@ def genotype_phase(root, fasta, bams) -> dict:
     return out
 
 
+def devices_phase(root, fasta, bams, legs) -> dict:
+    """The legs of DEVICE_LEGS against their one-card legs (see the module
+    docstring)."""
+    cards = two_cards()
+    distinct = cards[0] != cards[1]
+    out = {}
+    for label, threads, on_two, env, base, identical in DEVICE_LEGS:
+        ref = legs[base]
+        leg, *_ = call_leg(label, fasta, bams, os.path.join(root, label), [],
+                           {"LORIKEET_DEVICE_ACTIVITY": None, **env},
+                           threads=threads, cards=cards if on_two else None)
+        diff = same_files(ref["files"], leg["files"])
+        sites, ref_sites = read_sites(leg["vcf"]), read_sites(ref["vcf"])
+        check([k for k, _ in sites] == [k for k, _ in ref_sites],
+              f"{label}: sites/alleles/genotypes differ from the {base} "
+              "leg's")
+        dq = max((abs(a - b) for (_, a), (_, b) in zip(sites, ref_sites)),
+                 default=0.0)
+        check(dq <= QUAL_TOL, f"{label}: QUAL differs by {dq} > {QUAL_TOL}")
+        check(not identical or not diff,
+              f"{label}: {diff} differ from the {base} leg's")
+        dispatch = leg["dispatch"]
+        reruns = leg["span_reruns"]
+        spans = dispatch["remote"] if threads > 1 else leg["spans"]
+        check(dispatch["host"] == 0 and spans == ref["spans"] + reruns > 0,
+              f"{label}: dispatch {dispatch}, {leg['spans']} spans, "
+              f"{base} leg {ref['spans']}, {reruns} reruns")
+        n_cards = 2 if on_two else 1
+        check(len(leg["devices"]) == n_cards and sorted(
+            leg["card_launches"]) == list(range(n_cards)),
+              f"{label}: devices {leg['devices']}, K2 launches by position "
+              f"{leg['card_launches']}")
+        chain = base == "gpu_act"
+        check(leg["activity_spans"] == (spans if chain else 0)
+              and leg["worker_counts"]["act_spans"]
+              == (spans if chain and threads > 1 else 0),
+              f"{label}: {leg['activity_spans']} chains, workers sent "
+              f"{leg['worker_counts']}, {spans} spans")
+        if threads > 1:
+            workers = leg["workers"]
+            check(workers and all(
+                not (w["torch_imported"] or w["cuda_initialized"]
+                     or w["foreign_modules"]) for w in workers),
+                  f"{label}: worker reports {workers}")
+        emit("devices", leg=label, base_leg=base, threads=threads,
+             devices=leg["devices"], cards_distinct=distinct if on_two
+             else None, env=env, wall_s=leg["wall_s"],
+             base_wall_s=ref["wall_s"], launches=leg["launches"],
+             card_launches=leg["card_launches"], dispatch=dispatch,
+             activity_spans=leg["activity_spans"],
+             worker_counts=leg["worker_counts"], span_reruns=reruns,
+             vcf_identical=os.path.basename(leg["vcf"]) not in diff,
+             files_differing=diff, max_qual_diff=dq,
+             pairhmm_s=leg["pairhmm_s"], stages_s=leg["stages_s"])
+        out[label] = leg
+    return out
+
+
 def sw_main_path_phase(pairs, dev) -> dict:
     """The largest realignment SW batch of the first card leg, replayed at
     the main path's own settings: kernel, plain version and native aligner
@@ -1208,6 +1332,7 @@ def main() -> int:
         gpu, gpu_sw = legs["gpu"], legs["gpu_sw"]
         pool_phase(root, *dataset[:2], legs)
         genotype_phase(root, *dataset[:2])
+        devices_phase(root, *dataset[:2], legs)
         # the main path's largest batches, replayed after the counted run:
         # each kernel at the shapes the main path gives it
         main_batch = kernel_phase("main_path", batch, dev, timed=True)

@@ -550,40 +550,31 @@ def build_pairs(haplotypes: list, reads_by_sample: dict,
 #: workers' own, added as their results come back
 DISPATCH_COUNTS = {"device": 0, "host": 0, "remote": 0}
 
-#: torch device the ``use_cuda`` path runs on.  Tests set it to "cpu" to run
-#: the kernel's plain torch version through the same path.
-PAIRHMM_DEVICE = "cuda"
-
 
 def resolve_use_cuda(use_cuda: bool | None) -> bool:
     """The one rule for where the pair-HMM runs: ``None`` means the card,
-    as ``True`` does, and only ``False`` selects the f64 host kernel.  The
-    card is required (RuntimeError without one) unless PAIRHMM_DEVICE was
-    moved to the CPU."""
-    if use_cuda is None:
-        use_cuda = True
-    if use_cuda:
-        import torch
-        if torch.device(PAIRHMM_DEVICE).type == "cuda":
-            from lorikeet_tpu_torch.device import require_cuda
-            require_cuda()
-    return bool(use_cuda)
+    as ``True`` does, and only ``False`` selects the f64 host kernel."""
+    return True if use_cuda is None else bool(use_cuda)
 
 
 def compute_pair_likelihoods(pairs: list, use_cuda: bool = None) -> np.ndarray:
     """log10 likelihood per packed pair.  With ``use_cuda`` (or ``None``,
-    which means the same) every batch runs as one grouped kernel launch on
-    PAIRHMM_DEVICE (raising when that device is missing) and is then
-    checked by pairhmm_forward_checked; with ``False`` the exact f64 native
+    which means the same) every batch runs on the grouped kernel, its table
+    blocks split over the run's device list (parallel.sharding.get_devices:
+    an error when it names a card and there is none), and is then checked
+    once by pairhmm_forward_checked; with ``False`` the exact f64 native
     host kernel computes it."""
     if not pairs:
         return np.zeros(0)
     use_cuda = resolve_use_cuda(use_cuda)
-    DISPATCH_COUNTS["device" if use_cuda else "host"] += 1
     if use_cuda:
         from lorikeet_tpu_torch.ops.pairhmm_cuda import pairhmm_forward_grouped
-        raw = pairhmm_forward_grouped(pairs, PAIRHMM_DEVICE)
+        from lorikeet_tpu_torch.parallel.sharding import get_devices
+        devices = get_devices()
+        DISPATCH_COUNTS["device"] += 1
+        raw = pairhmm_forward_grouped(pairs, devices)
         return pairhmm_forward_checked(raw, pairs)
+    DISPATCH_COUNTS["host"] += 1
     return pairhmm_forward_f64(pairs)
 
 

@@ -3,14 +3,17 @@
 ``python -m lorikeet_tpu_torch.cli call -r REF -b BAM... -o OUT`` runs the
 `call` path with the pair-HMM on the CUDA kernel; ``-t N`` (default 8)
 spreads the chunk spans over N CPU worker processes whose pair-HMM batches
-the parent's card runs, as the JAX CLI's ``-t`` does.  The argument parser
+the parent's cards run, as the JAX CLI's ``-t`` does.  The argument parser
 and the parser-side helpers are in ``cli_parser``; this module owns the
 entry point and fills the configs, which point at the port's processing
 and map the device flags: the pair-HMM runs on the card (an error without
 one) unless ``--force-cpu`` selects the exact f64 host pair-HMM,
 ``--pallas-sw`` runs the realignment Smith-Waterman on the CUDA kernel
 (independent of ``--force-cpu``, and an error without a card), and
-``--devices N`` (N > 1) is refused.
+``--devices`` picks the cards: ``auto`` (the default) every visible card,
+``N`` the first N (an error when fewer are visible).  Each pair batch's
+table blocks are split over them, and with more than one at ``-t 1`` the
+activity chain runs on them too, split by position.
 """
 from __future__ import annotations
 
@@ -178,10 +181,6 @@ def main(argv=None) -> int:
     iv = parse_limiting_interval(args.limiting_interval)
     limit = (iv.start, iv.end) if iv is not None else None
 
-    if str(getattr(args, "devices", "auto")) not in ("auto", "1"):
-        print(f"--devices {args.devices}: one CUDA device is supported; "
-              "pass --devices 1 or auto", file=sys.stderr)
-        return 2
     if not args.reference and not args.genome_fasta_directory:
         print("supply -r and/or -d", file=sys.stderr)
         return 2

@@ -325,8 +325,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="use the exact f64 host pair-HMM; without this flag "
                              "the pair-HMM needs a CUDA card")
         sp.add_argument("--devices", default="auto",
-                        help="CUDA cards to use: 'auto' or 1 (one card; "
-                             "more are refused)")
+                        help="CUDA cards to split each pair batch over "
+                             "('auto' = every visible card, N = the first "
+                             "N, an error when fewer are visible; with more "
+                             "than one at -t 1 the activity chain runs on "
+                             "them too); ignored under --force-cpu")
         sp.add_argument("--pallas-sw", action="store_true",
                         help="batch realignment Smith-Waterman on device "
                              "(bit-identical; wins at high region depth)")

@@ -25,6 +25,17 @@ def require_cuda() -> torch.device:
     return torch.device("cuda")
 
 
+def device_list(devices) -> list:
+    """``devices`` (a device, or a list of them) as a list of torch
+    devices: an error when one is a card and this process has none."""
+    if isinstance(devices, (str, torch.device)):
+        devices = [devices]
+    devices = [torch.device(d) for d in devices]
+    if any(d.type == "cuda" for d in devices):
+        require_cuda()
+    return devices
+
+
 def nvidia_smi_line() -> str | None:
     """``name, power.limit`` of every visible card, one line each."""
     exe = shutil.which("nvidia-smi")

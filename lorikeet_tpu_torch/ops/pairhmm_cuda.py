@@ -19,6 +19,12 @@ The flat form is one row per pair: read row p against haplotype row p.
   (``csrc/pairhmm.cu``) for tensors on a CUDA device, and takes the plain
   version only for tensors on the CPU.  It never falls back: a failed build
   or launch raises.
+- :func:`enqueue_grouped_jobs` / :func:`readback_grouped` split a batch
+  over a list of devices: each takes a contiguous share of the table
+  blocks (``parallel.hosts.even_shares``) and the whole read and haplotype
+  planes.  Every block is computed alone at the batch's own Rpad and
+  Hmax, so each pair's value does not depend on how many devices share
+  the batch.
 - :func:`pack_flat_inputs`, :func:`pairhmm_flat_torch` and
   :func:`pairhmm_flat_cuda` are the same three for the flat kernel, whose
   pairs run in classes of read length (:func:`flat_classes`), a launch each;
@@ -33,6 +39,7 @@ import ctypes
 import numpy as np
 import torch
 
+from lorikeet_tpu_torch.device import device_list
 from lorikeet_tpu_torch.ops.pairhmm import TRISTATE_CORRECTION
 # the grouped packer is numpy only and lives apart, so that a pool worker
 # packs its batches without importing torch; its names stay importable here
@@ -67,6 +74,8 @@ FLAT_ORDER = FLAT_CLASSES + (0,)
 
 #: kernel launches made by pairhmm_grouped_cuda in this process
 LAUNCHES = 0
+#: the same launches by position in the device list they ran for
+CARD_LAUNCHES = {}
 #: kernel launches made by pairhmm_flat_cuda in this process
 FLAT_LAUNCHES = 0
 
@@ -275,10 +284,11 @@ def _check_flat_inputs(t: dict) -> None:
                          "rows in turn, one class of FLAT_ORDER each")
 
 
-def pairhmm_grouped_cuda(t: dict) -> torch.Tensor:
+def pairhmm_grouped_cuda(t: dict, card: int = 0) -> torch.Tensor:
     """Grouped forward, f32 [nblocks * 32], on the device of ``t``'s
     tensors: the CUDA kernel for a CUDA device, the plain version
-    (:func:`pairhmm_sweep_torch`) for the CPU."""
+    (:func:`pairhmm_sweep_torch`) for the CPU.  ``card`` is the position
+    in the device list the launch runs for (CARD_LAUNCHES)."""
     global LAUNCHES
     dev = t["quals"].device
     if dev.type == "cpu":
@@ -300,64 +310,86 @@ def pairhmm_grouped_cuda(t: dict) -> torch.Tensor:
             *(t[k].data_ptr() for k in _GROUPED_NAMES),
             scratch.data_ptr(), nblocks, rpad, hpad, out.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"pairhmm kernel launch failed: CUDA error {rc} "
-                           f"(nblocks={nblocks}, Rpad={rpad}, Hmax={hpad})")
+        raise RuntimeError(f"pairhmm kernel launch failed on {dev}: CUDA "
+                           f"error {rc} (nblocks={nblocks}, Rpad={rpad}, "
+                           f"Hmax={hpad})")
     LAUNCHES += 1
+    CARD_LAUNCHES[card] = CARD_LAUNCHES.get(card, 0) + 1
     return out
 
 
-def pairhmm_forward_grouped(pairs, device) -> np.ndarray:
+def pairhmm_forward_grouped(pairs, devices) -> np.ndarray:
     """Forward log10 likelihoods (f32 values as float64) [len(pairs)] for a
-    flat (hap, read, q, iq, dq, gcp) pair list on ``device``: the host half
-    (:func:`prepare_grouped_jobs`) and the device half
-    (:func:`enqueue_grouped_jobs`, :func:`readback_grouped`) in turn."""
+    flat (hap, read, q, iq, dq, gcp) pair list on ``devices`` (a device or
+    a list of them): the host half (:func:`prepare_grouped_jobs`) and the
+    device half (:func:`enqueue_grouped_jobs`, :func:`readback_grouped`) in
+    turn."""
     if not pairs:
         return np.zeros(0)
-    device = torch.device(device)
-    if device.type == "cuda":
-        from lorikeet_tpu_torch.device import require_cuda
-        require_cuda()
+    devices = device_list(devices)
     arrays, out_pos = prepare_grouped_jobs(pairs)
-    return readback_grouped(enqueue_grouped_jobs(arrays, out_pos, device))
+    return readback_grouped(enqueue_grouped_jobs(arrays, out_pos, devices))
 
 
-def enqueue_grouped_jobs(arrays: dict, out_pos: np.ndarray, device,
-                         stream=None) -> tuple:
-    """Device half, without waiting: copies the packed arrays in from
-    pinned memory, launches the grouped kernel, gathers ``out_pos`` on the
-    card and starts the copy back, all on ``stream`` (the device's current
-    stream when None), then records an event.  Returns the handle that
-    :func:`readback_grouped` waits on.  On a CPU ``device`` the plain
-    version runs at once."""
-    device = torch.device(device)
-    if device.type == "cpu":
-        flat = pairhmm_grouped_cuda(to_tensors(arrays, device))
-        return flat[torch.from_numpy(out_pos)], None
-    stream = stream or torch.cuda.current_stream(device)
-    # the kernel launches on the current stream: the copies, the launch and
-    # the gather must all be issued under the same one, or the copy back
-    # could race the kernel
-    with torch.cuda.device(device), torch.cuda.stream(stream):
-        host = {k: torch.from_numpy(v).pin_memory()
-                for k, v in arrays.items()}
-        host["base_bits"] = torch.from_numpy(_BASE_BITS).pin_memory()
-        host["out_pos"] = torch.from_numpy(out_pos).pin_memory()
-        t = {k: v.to(device, non_blocking=True) for k, v in host.items()}
-        vals = pairhmm_grouped_cuda(t)[t.pop("out_pos")]
-        out = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
-        out.copy_(vals, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(stream)
-    return out, done
+def enqueue_grouped_jobs(arrays: dict, out_pos: np.ndarray, devices,
+                         streams=None) -> tuple:
+    """Device half, without waiting.  The table blocks are split over
+    ``devices`` (a device or a list of them) in contiguous shares
+    (``parallel.hosts.even_shares``, the larger first), and
+    device i gets its share of ``tile_tab`` / ``hap_tab`` with the whole
+    read and haplotype planes.  For each non-empty share, under device i
+    and on ``streams[i]`` (its current stream when None): the copies in
+    from pinned memory, the grouped kernel, the copy of the share's values
+    back to pinned memory, and an event.  On a CPU device the plain
+    version runs at once.  Returns the handle that
+    :func:`readback_grouped` waits on."""
+    from lorikeet_tpu_torch.parallel.hosts import even_shares
+    devices = device_list(devices)
+    streams = streams or [None] * len(devices)
+    nblocks = arrays["tile_tab"].size
+    shares = []
+    host = None
+    for card, (device, stream, (lo, hi)) in enumerate(zip(
+            devices, streams, even_shares(nblocks, len(devices)))):
+        if hi == lo:
+            continue
+        share = {**arrays, "tile_tab": arrays["tile_tab"][lo:hi],
+                 "hap_tab": arrays["hap_tab"][lo:hi]}
+        if device.type == "cpu":
+            shares.append((pairhmm_grouped_cuda(
+                to_tensors(share, device), card), None))
+            continue
+        if host is None:
+            host = {k: torch.from_numpy(v).pin_memory()
+                    for k, v in arrays.items()}
+            host["base_bits"] = torch.from_numpy(_BASE_BITS).pin_memory()
+        stream = stream or torch.cuda.current_stream(device)
+        # the kernel launches on the current stream of the current device:
+        # the copies, the launch and the copy back must all be issued under
+        # this device and this stream, or the copy back could race the
+        # kernel
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            t = {k: (v[lo:hi] if k in ("tile_tab", "hap_tab") else v)
+                 .to(device, non_blocking=True) for k, v in host.items()}
+            vals = pairhmm_grouped_cuda(t, card)
+            out = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
+            out.copy_(vals, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
+        shares.append((out, done))
+    return shares, out_pos
 
 
 def readback_grouped(handle: tuple) -> np.ndarray:
-    """Waits for an :func:`enqueue_grouped_jobs` handle: the per-pair
-    values (f32 as float64)."""
-    out, done = handle
-    if done is not None:
-        done.synchronize()
-    return out.numpy().astype(np.float64)
+    """Waits for an :func:`enqueue_grouped_jobs` handle: every device's
+    share, joined in block order, then each pair's value (f32 as
+    float64)."""
+    shares, out_pos = handle
+    for _, done in shares:
+        if done is not None:
+            done.synchronize()
+    flat = torch.cat([out for out, _ in shares]).numpy()
+    return flat[out_pos].astype(np.float64)
 
 
 # ---- flat: one row per pair ----

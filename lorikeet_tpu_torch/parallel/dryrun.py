@@ -62,9 +62,9 @@ def dryrun(world_size: int = 1, device="cuda") -> None:
 
 
 def _small_call(device) -> None:
-    import lorikeet_tpu_torch.calling.likelihoods as lkmod
     from lorikeet_tpu_torch.calling.engine import CallerConfig
     from lorikeet_tpu_torch.io.bam_writer import write_bam
+    from lorikeet_tpu_torch.parallel import sharding
     from lorikeet_tpu_torch.processing import run_call
     from lorikeet_tpu_torch.testkit.simulate import Variant, simulate_reads
 
@@ -75,10 +75,12 @@ def _small_call(device) -> None:
     recs = simulate_reads(ref, variants, coverage=12, read_length=60,
                           seed=7, tid=0)
     recs.sort(key=lambda r: r.pos)
-    old_device = lkmod.PAIRHMM_DEVICE
+    # the run's device list is this one device: it stands in for the
+    # visible cards while the call configures its devices
+    old_cards = sharding.visible_cards
     old_env = os.environ.get("LORIKEET_DEVICE_ACTIVITY")
     old_count = os.environ.get("LORIKEET_PROCESS_COUNT")
-    lkmod.PAIRHMM_DEVICE = str(device)
+    sharding.visible_cards = lambda: [device]
     os.environ["LORIKEET_DEVICE_ACTIVITY"] = "1"
     os.environ["LORIKEET_PROCESS_COUNT"] = "1"     # this rank takes the genome
     try:
@@ -95,7 +97,7 @@ def _small_call(device) -> None:
             assert any(ln.split("\t")[1] == "451" for ln in body), \
                 f"planted SNP missing from the called VCF: {body}"
     finally:
-        lkmod.PAIRHMM_DEVICE = old_device
+        sharding.visible_cards = old_cards
         for key, old in (("LORIKEET_DEVICE_ACTIVITY", old_env),
                          ("LORIKEET_PROCESS_COUNT", old_count)):
             if old is None:

@@ -43,3 +43,12 @@ def host_shard(items: list, process_index: int = None,
         return list(items)
     return [x for i, x in enumerate(items)
             if i % process_count == process_index]
+
+
+def even_shares(n_items: int, n: int) -> list:
+    """(lo, hi) of each of ``n`` contiguous shares of ``n_items`` items, in
+    order: the shares differ by at most one item, the larger ones first, so
+    that with fewer items than shares the last ones are empty."""
+    per, extra = divmod(n_items, n)
+    cuts = [i * per + min(i, extra) for i in range(n + 1)]
+    return list(zip(cuts[:-1], cuts[1:]))

@@ -1,28 +1,35 @@
 """The device activity chain: per-position ref-vs-any EM, HQ-soft-clip
-state expansion and band-pass as torch ops, on one device or with the
-position axis split over the ranks of a ``torch.distributed`` group.
+state expansion and band-pass as torch ops, with the position axis split
+over the devices of one process or over the ranks of a
+``torch.distributed`` group.
 
 Counterpart of lorikeet_tpu/parallel/pipeline.py.  The reference scales the
 genome axis by chunking with small overlaps
 (haplotype_caller_engine.rs:417,947; the band-pass needs only a +/-50bp
-halo, band_pass_activity_profile.rs:24-26).  Here each rank runs the EM on
-its own stretch of positions, the ranks exchange kernel-width halos for the
-band-pass convolution, and the per-sample depth totals are all-reduced.
-The chain runs in f32 on the device, as the JAX chain does; the host chain
-(models.activity) is f64.  XLA's needs do not carry over: the position axis
-is not padded to a power of two and there is no optimisation barrier.
+halo, band_pass_activity_profile.rs:24-26).  Each device or rank smooths
+its own stretch of positions from the stretch's raw probabilities and HQ
+means widened by a halo (the taps plus the expansion's reach): one process
+cuts each stretch with its halo from the host arrays and runs the EM over
+both; a group's ranks run the EM on their own stretch and exchange the
+halos.  Both then smooth the widened stretch the same way
+(``_smooth_padded``).  The chain runs in f32 on the device, as the JAX
+chain does; the host chain (models.activity) is f64.  XLA's needs do not
+carry over: the position axis is not padded to a power of two, so the
+stretches may differ in length, and there is no optimisation barrier.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
 import torch
 
+from lorikeet_tpu_torch.device import device_list
 from lorikeet_tpu_torch.models.activity import (
     AVERAGE_HQ_SOFTCLIPS_HQ_BASES_THRESHOLD as HQ_T, gaussian_kernel,
 )
-from lorikeet_tpu_torch.parallel.hosts import group_rank_world
+from lorikeet_tpu_torch.parallel.hosts import even_shares, group_rank_world
 
 
 def active_probabilities_torch(gls: torch.Tensor, ploidy: int,
@@ -115,6 +122,28 @@ def _band_pass_torch(probs: torch.Tensor) -> torch.Tensor:
     return out[0, 0].to(torch.float32)
 
 
+def _halo(prop: int) -> int:
+    """Positions a stretch needs on each side: the band-pass taps plus the
+    reach of the HQ-soft-clip expansion (a neighbour's HQ position within
+    ``prop`` bp scatters prob into the stretch)."""
+    return (len(gaussian_kernel()) - 1) // 2 + int(prop)
+
+
+def _smooth_padded(probs: torch.Tensor, hq_mean, prop: int, halo: int,
+                   lo: int, L: int) -> torch.Tensor:
+    """Expansion and band-pass of the stretch that starts at position
+    ``lo`` of an axis of ``L``, given its raw probs and HQ means (None: no
+    expansion) with ``halo`` positions on each side, zeros past the genome's
+    two ends; the stretch's smoothed values.  The expansion stops at the
+    genome's first and last position, as the whole axis's chain does."""
+    n = probs.shape[0]
+    if hq_mean is not None:
+        first = max(0, halo - lo)
+        last = min(n - 1, L - 1 - lo + halo)
+        probs = _expand_hq_torch(probs, hq_mean, prop, first, last)
+    return _band_pass_torch(probs)[halo:n - halo]
+
+
 def _exchange_halo(x: torch.Tensor, halo: int, group) -> torch.Tensor:
     """[left neighbour's last ``halo``, x, right neighbour's first ``halo``]
     along axis 0, zeros at the genome's two ends.  Every rank gathers every
@@ -134,7 +163,8 @@ def _exchange_halo(x: torch.Tensor, halo: int, group) -> torch.Tensor:
 
 def _local_stretch(L: int, halo: int, group) -> tuple:
     """(lo, hi) of this rank's positions; the axis must split evenly into
-    stretches no shorter than the halo."""
+    stretches no shorter than the halo (a rank's halo comes from its two
+    neighbours only)."""
     rank, world = group_rank_world(group)
     if L % world or (world > 1 and L // world < halo):
         raise ValueError(f"{L} positions do not split over {world} ranks "
@@ -153,27 +183,15 @@ def _gather_positions(local: torch.Tensor, group) -> torch.Tensor:
     return torch.cat(parts)
 
 
-def _smooth_stretch(probs: torch.Tensor, hq_mean, prop: int,
-                    group) -> torch.Tensor:
-    """Band-pass of this rank's stretch.  The halo covers the taps plus the
-    HQ-soft-clip expansion's reach: a neighbour's HQ position within
-    ``prop`` bp scatters prob into this stretch, so raw probs and HQ means
-    are exchanged wide enough to replay the expansion locally.  At the
-    genome's two ends the halo is zeros and the expansion stops at the
-    genome's first and last position, as the unsharded chain's does."""
-    half = (len(gaussian_kernel()) - 1) // 2
-    if hq_mean is None:
-        padded = _exchange_halo(probs, half, group)
-        return _band_pass_torch(padded)[half:-half]
-    halo = half + int(prop)
-    rank, world = group_rank_world(group)
-    n = probs.shape[0] + 2 * halo
-    first = halo if rank == 0 else 0
-    last = n - 1 - halo if rank == world - 1 else n - 1
-    padded = _expand_hq_torch(_exchange_halo(probs, halo, group),
-                              _exchange_halo(hq_mean, halo, group), prop,
-                              first, last)
-    return _band_pass_torch(padded)[halo:-halo]
+def _smooth_stretch(probs: torch.Tensor, hq_mean, prop: int, lo: int,
+                    L: int, group) -> torch.Tensor:
+    """Band-pass of this rank's stretch, which starts at ``lo``: the raw
+    probs and HQ means are exchanged with the neighbours a halo wide, then
+    smoothed as one process smooths a stretch."""
+    halo = _halo(prop)
+    hq = None if hq_mean is None else _exchange_halo(hq_mean, halo, group)
+    return _smooth_padded(_exchange_halo(probs, halo, group), hq, prop, halo,
+                          lo, L)
 
 
 def smoothed_activity_device(gls: np.ndarray, hq_mean: np.ndarray,
@@ -183,22 +201,38 @@ def smoothed_activity_device(gls: np.ndarray, hq_mean: np.ndarray,
                              stand_min_conf: float = 25.0,
                              max_prob_propagation: int = 50,
                              n_iters: int = 100,
-                             device="cuda") -> np.ndarray:
+                             devices="cuda") -> np.ndarray:
     """The device form of models.activity.active_probabilities +
-    band_pass_smooth: EM, HQ-soft-clip expansion and band-pass on
-    ``device``, returning the smoothed [L] profile as numpy."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        from lorikeet_tpu_torch.device import require_cuda
-        require_cuda()
-    g = torch.from_numpy(np.ascontiguousarray(gls, np.float32)).to(device)
-    h = torch.from_numpy(np.ascontiguousarray(hq_mean, np.float32)).to(device)
-    probs = active_probabilities_torch(
-        g, ploidy, snp_heterozygosity, heterozygosity_stdev, stand_min_conf,
-        n_iters)
-    out = _band_pass_torch(
-        _expand_hq_torch(probs, h, int(max_prob_propagation)))
-    return out.cpu().numpy()
+    band_pass_smooth, returning the smoothed [L] profile as numpy.  The
+    position axis is split over ``devices`` (a device or a list of them)
+    in contiguous stretches (``even_shares``; an empty one runs nothing);
+    each is cut from the host arrays with a halo on both sides and runs
+    the EM, the HQ-soft-clip expansion and the band-pass on its device,
+    and the stretches, their halos cut, are joined in order."""
+    devices = device_list(devices)
+    prop = int(max_prob_propagation)
+    halo = _halo(prop)
+    L = gls.shape[1]
+    parts = []
+    for device, (lo, hi) in zip(devices, even_shares(L, len(devices))):
+        if hi == lo:
+            continue
+        a, b = max(0, lo - halo), min(L, hi + halo)
+        pad = (a - (lo - halo), hi + halo - b)
+        with (torch.cuda.device(device) if device.type == "cuda"
+              else contextlib.nullcontext()):
+            g = torch.from_numpy(
+                np.ascontiguousarray(gls[:, a:b], np.float32)).to(device)
+            h = torch.from_numpy(
+                np.ascontiguousarray(hq_mean[a:b], np.float32)).to(device)
+            probs = active_probabilities_torch(
+                g, ploidy, snp_heterozygosity, heterozygosity_stdev,
+                stand_min_conf, n_iters)
+            out = _smooth_padded(torch.nn.functional.pad(probs, pad),
+                                 torch.nn.functional.pad(h, pad), prop,
+                                 halo, lo, L)
+            parts.append(out.cpu())
+    return torch.cat(parts).numpy()
 
 
 def sharded_smoothed_activity(gls: np.ndarray, hq_mean: np.ndarray,
@@ -210,18 +244,15 @@ def sharded_smoothed_activity(gls: np.ndarray, hq_mean: np.ndarray,
                               n_iters: int = 100,
                               device="cuda") -> np.ndarray:
     """smoothed_activity_device with the position axis split over the ranks
-    of ``group``: every rank passes the whole arrays, runs the chain on its
-    own stretch of positions (halo: the taps plus the expansion's reach) and
-    gets the whole profile back.  Nothing calls it yet but the tests: it is
-    what a run on several devices puts in smoothed_activity_device's
-    place."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        from lorikeet_tpu_torch.device import require_cuda
-        require_cuda()
+    of ``group``, one device each: every rank passes the whole arrays, runs
+    the EM on its own stretch of positions, exchanges the halos with its
+    neighbours and gets the whole profile back.  A run of several processes
+    puts it in smoothed_activity_device's place; ``call`` runs in one
+    process and splits over its device list instead."""
+    (device,) = device_list(device)
     prop = int(max_prob_propagation)
-    halo = (len(gaussian_kernel()) - 1) // 2 + prop
-    lo, hi = _local_stretch(gls.shape[1], halo, group)
+    L = gls.shape[1]
+    lo, hi = _local_stretch(L, _halo(prop), group)
     g = torch.from_numpy(
         np.ascontiguousarray(gls[:, lo:hi], np.float32)).to(device)
     h = torch.from_numpy(
@@ -229,7 +260,8 @@ def sharded_smoothed_activity(gls: np.ndarray, hq_mean: np.ndarray,
     probs = active_probabilities_torch(
         g, ploidy, snp_heterozygosity, heterozygosity_stdev, stand_min_conf,
         n_iters)
-    out = _gather_positions(_smooth_stretch(probs, h, prop, group), group)
+    out = _gather_positions(_smooth_stretch(probs, h, prop, lo, L, group),
+                            group)
     return out.cpu().numpy()
 
 
@@ -241,17 +273,17 @@ def sharded_activity_step(group=None, ploidy: int = 2, device="cuda"):
     depth_totals [S]) as numpy; every rank passes the whole arrays and gets
     the whole result."""
     device = torch.device(device)
-    half = (len(gaussian_kernel()) - 1) // 2
 
     def step(gls, depths):
-        lo, hi = _local_stretch(gls.shape[1], half, group)
+        L = gls.shape[1]
+        lo, hi = _local_stretch(L, _halo(0), group)
         g = torch.from_numpy(
             np.ascontiguousarray(gls[:, lo:hi], np.float32)).to(device)
         d = torch.from_numpy(
             np.ascontiguousarray(depths[:, lo:hi], np.float32)).to(device)
         probs = active_probabilities_torch(g, ploidy)
         smoothed = _gather_positions(
-            _smooth_stretch(probs, None, 0, group), group)
+            _smooth_stretch(probs, None, 0, lo, L, group), group)
         depth_total = d.sum(dim=1)
         if group_rank_world(group)[1] > 1:
             import torch.distributed as dist

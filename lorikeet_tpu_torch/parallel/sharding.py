@@ -1,15 +1,23 @@
-"""The region-batch step over the ranks of a ``torch.distributed`` group.
+"""The devices of a run: the process-wide device list that ``--devices``
+sets, and the region-batch step over the ranks of a ``torch.distributed``
+group.
 
 Counterpart of lorikeet_tpu/parallel/sharding.py.  The reference scales with
 shared-memory thread pools (rayon par_iter over contigs/chunks/regions,
 reference/src/haplotype/haplotype_caller_engine.rs:443-465,
 assembly_region_walker.rs:139-141) and reduces per-chunk results with
-fold/reduce (:599-619).  Here the pair batch is split over the ranks of a
-process group, one card each: per-pair likelihood evaluation is
-embarrassingly parallel, and the [samples, positions] depth matrices reduce
-with ``all_reduce``.  The JAX package's mesh (``make_mesh`` / ``set_mesh``)
-has no counterpart: the group is an argument, and with no group initialised
-every function here runs at world size 1.
+fold/reduce (:599-619).  The JAX package's process-wide mesh
+(``configure_mesh`` / ``get_mesh``) becomes a process-wide list of torch
+devices (``configure_devices`` / ``get_devices``): one process drives every
+card of the list, as one JAX process drives its mesh.  The pair-HMM
+dispatch splits each batch's table blocks over the list
+(ops/pairhmm_cuda.py), the activity chain splits the position axis over it
+(parallel/pipeline.py), and the pool's device service serves both to the
+``-t`` workers (parallel/pool.py).  The group form below splits a pair
+batch over the ranks of a process group instead, one card each: per-pair
+likelihood evaluation is embarrassingly parallel, and the [samples,
+positions] depth matrices reduce with ``all_reduce``; with no group
+initialised it runs at world size 1.
 """
 from __future__ import annotations
 
@@ -19,6 +27,65 @@ import torch
 from lorikeet_tpu_torch.ops.pairhmm_cuda import (
     pairhmm_forward_sharded, rank_share,
 )
+
+#: the devices of this run, set once by configure_devices (None: never
+#: configured, which means the first visible card)
+_DEVICES: list | None = None
+
+
+def visible_cards() -> list:
+    """Every CUDA card this process sees, in order: what ``--devices``
+    picks from.  One small function, so that a caller can put other
+    devices in the cards' place (the tests: CPU devices, which run the
+    kernels' plain versions)."""
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _cards(n) -> list:
+    """The first ``n`` visible cards (every one when ``n`` is None): an
+    error without a card, and an error naming both counts when fewer than
+    ``n`` are visible (never fewer devices than asked for)."""
+    cards = visible_cards()
+    if not cards:
+        from lorikeet_tpu_torch.device import require_cuda
+        require_cuda()
+        raise RuntimeError("no CUDA device: torch.cuda.device_count() is 0")
+    if n is not None and n > len(cards):
+        raise ValueError(f"--devices {n}: only {len(cards)} CUDA device(s) "
+                         "are visible")
+    return cards if n is None else cards[:n]
+
+
+def configure_devices(spec="auto", on_card: bool = True) -> list:
+    """Resolve the ``--devices`` knob and make it the process's device
+    list: 'auto' = every visible card, N = the first N, None / 0 / 1 = one
+    card.  ``on_card`` False (``--force-cpu``) makes the list the CPU,
+    whatever the spec.  Returns the list."""
+    global _DEVICES
+    if not on_card:
+        devices = [torch.device("cpu")]
+    elif spec == "auto":
+        devices = _cards(None)
+    elif spec in (None, "none"):
+        devices = _cards(1)
+    else:
+        try:
+            n = int(spec)
+        except (TypeError, ValueError):
+            raise ValueError(f"--devices {spec!r}: want 'auto' or a count "
+                             "of cards") from None
+        if n < 0:
+            raise ValueError(f"--devices {n}: want 'auto' or a count of "
+                             "cards")
+        devices = _cards(max(n, 1))
+    _DEVICES = devices
+    return list(devices)
+
+
+def get_devices() -> list:
+    """The process's device list (see configure_devices); before any
+    configuration, the first visible card (an error without one)."""
+    return list(_DEVICES) if _DEVICES is not None else _cards(1)
 
 
 def region_batch_step(group=None, n_samples: int = 8, device="cuda"):

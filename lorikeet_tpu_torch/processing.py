@@ -14,13 +14,14 @@ padding/size defaults.
 Counterpart of lorikeet_tpu/processing.py.  The orchestration is the same;
 what changed is where the device comes in: the pair-HMM runs on the CUDA
 kernel unless ``cfg.use_cuda`` is False (resolved once, at
-_configure_devices; no card is then an error), activity profiling stays on
-the host unless LORIKEET_DEVICE_ACTIVITY=1 sends it through the device
-chain (parallel/pipeline.py), and there is no device mesh and no compile
-prewarm.  ``-t`` above 1 fans the chunk spans out over the span-worker pool
-(parallel/pool.py): CPU workers, with the parent's card serving their
-pair-HMM and SW batches.  The device activity chain is not served to pool
-workers, so start_engine refuses it together with ``-t`` above 1.
+_configure_devices; no card is then an error), over the process's device
+list (``--devices``: parallel/sharding.py) in place of the JAX mesh, and
+there is no compile prewarm.  Activity profiling takes the device chain
+(parallel/pipeline.py, split by position over the list) by the JAX
+package's rule, decided once in the parent and carried on ``cfg``.  ``-t``
+above 1 fans the chunk spans out over the span-worker pool
+(parallel/pool.py): CPU workers, with the parent's cards serving their
+pair-HMM batches, activity chains and SW batches.
 """
 from __future__ import annotations
 
@@ -241,44 +242,64 @@ def _merge_parts(parts: list, n_samples: int) -> ContigResult:
     return result
 
 
-def _device_activity(cfg) -> bool:
-    """Whether activity profiling runs as the device chain
-    (parallel/pipeline.py: EM, HQ-soft-clip expansion and band-pass as torch
-    ops).  The JAX package takes the chain by default only under a mesh of
-    more than one device; this build drives one card, so the host EM +
-    band-pass stay the default and LORIKEET_DEVICE_ACTIVITY=1 (or 0)
-    decides."""
-    return os.environ.get("LORIKEET_DEVICE_ACTIVITY") == "1"
+def _device_activity(cfg, devices) -> bool:
+    """Whether activity profiling takes the device chain (parallel/pipeline:
+    EM, HQ-soft-clip expansion and band-pass as torch ops, split by
+    position over ``devices``): the JAX package's rule.
+    LORIKEET_DEVICE_ACTIVITY=1 or 0 decides when set; otherwise the chain
+    is on when the run is on cards, uses more than one, and runs at -t 1
+    (the JAX package's -t workers run on a CPU backend, where its rule
+    says off)."""
+    env = os.environ.get("LORIKEET_DEVICE_ACTIVITY")
+    if env in ("0", "1"):
+        return env == "1"
+    return (getattr(cfg, "use_cuda", None) is not False
+            and len(devices) > 1
+            and all(d.type == "cuda" for d in devices)
+            and (getattr(cfg, "threads", 1) or 1) <= 1)
 
 
-def _activity_device(cfg) -> str:
-    """Device of the activity chain: the pair-HMM's (PAIRHMM_DEVICE), or
-    the CPU when the caller asked for the host (``use_cuda`` False)."""
+def _activity_devices(cfg) -> list:
+    """Devices of the activity chain: the run's device list, or the CPU
+    when the caller asked for the host (``use_cuda`` False)."""
+    import torch
     if getattr(cfg, "use_cuda", None) is False:
-        return "cpu"
-    from lorikeet_tpu_torch.calling import likelihoods
-    return likelihoods.PAIRHMM_DEVICE
+        return [torch.device("cpu")]
+    from lorikeet_tpu_torch.parallel.sharding import get_devices
+    return get_devices()
+
+
+#: in a -t pool worker: sends a span's activity chain to the parent's
+#: device service (parallel/pool.py), called as
+#: ``DEVICE_ACTIVITY(gls, hq_mean, ploidy, snp_heterozygosity,
+#: heterozygosity_stdev, stand_min_conf, max_prob_propagation)``
+DEVICE_ACTIVITY = None
 
 
 def _configure_devices(cfg):
     """Resolve ``cfg.use_cuda`` once for the run: None means the card, as
     True does, and the card is then required; only False (``--force-cpu``)
-    selects the f64 host kernel.  ``cfg.use_cuda_sw`` (independent of
-    use_cuda) requires a card too.  The tests move PAIRHMM_DEVICE /
-    SW_DEVICE to the CPU to run the plain versions through the same path.
-    One card only: ``--devices`` must be 'auto' or 1 (there is no device
-    mesh)."""
+    selects the f64 host kernel and makes the device list the CPU.
+    ``cfg.devices`` (``--devices``: 'auto', N) sets the list
+    (parallel.sharding.configure_devices: an error above the visible
+    count).  ``cfg.use_cuda_sw`` (independent of use_cuda) requires a card
+    too.  Whether spans take the device activity chain is decided here,
+    once, and put on ``cfg.device_activity``.  The tests put CPU devices
+    in the cards' place (``sharding.visible_cards``) and move SW_DEVICE to
+    the CPU to run the plain versions through the same path."""
     import torch
 
     from lorikeet_tpu_torch.calling.likelihoods import resolve_use_cuda
+    from lorikeet_tpu_torch.parallel.sharding import configure_devices
     from lorikeet_tpu_torch.utils.progress import log
-    spec = getattr(cfg, "devices", None) or "auto"
-    if str(spec) not in ("auto", "1"):
-        raise ValueError(f"--devices {spec}: this build drives one CUDA "
-                         "device; pass --devices 1 or auto")
     cfg.use_cuda = resolve_use_cuda(cfg.use_cuda)
-    log.info("pair-HMM on %s", "the CUDA kernel" if cfg.use_cuda
-             else "the f64 host kernel")
+    devices = configure_devices(getattr(cfg, "devices", None) or "auto",
+                                on_card=cfg.use_cuda)
+    cfg.device_activity = _device_activity(cfg, devices)
+    log.info("pair-HMM on %s; activity on the %s chain",
+             f"the CUDA kernel over {[str(d) for d in devices]}"
+             if cfg.use_cuda else "the f64 host kernel",
+             "device" if cfg.device_activity else "host")
     if cfg.use_cuda_sw:
         from lorikeet_tpu_torch.ops import sw_cuda
         if torch.device(sw_cuda.SW_DEVICE).type == "cuda":
@@ -400,14 +421,19 @@ def _call_span(fasta, bams, contig_name, cfg, engine, lo, hi,
     hq_sum = sum(p.hq_sc_sum for p in profiles)
     hq_mean = np.where(hq_n > 0, hq_sum / np.maximum(hq_n, 1), 0.0)
     prop = getattr(cfg, "max_prob_propagation_distance", 50)
-    if _device_activity(cfg):
-        # EM + band-pass as one chain of torch ops on the device
-        from lorikeet_tpu_torch.parallel.pipeline import (
-            smoothed_activity_device)
-        smoothed = smoothed_activity_device(
-            gls, hq_mean, cfg.ploidy, cfg.snp_heterozygosity,
-            cfg.heterozygosity_stdev, cfg.stand_min_conf,
-            max_prob_propagation=prop, device=_activity_device(cfg))
+    if getattr(cfg, "device_activity", False):
+        # EM + band-pass as one chain of torch ops on the devices; in a
+        # pool worker, on the parent's
+        args = (gls, hq_mean, cfg.ploidy, cfg.snp_heterozygosity,
+                cfg.heterozygosity_stdev, cfg.stand_min_conf, prop)
+        if DEVICE_ACTIVITY is not None:
+            smoothed = DEVICE_ACTIVITY(*args)
+        else:
+            from lorikeet_tpu_torch.parallel.pipeline import (
+                smoothed_activity_device)
+            smoothed = smoothed_activity_device(
+                *args[:-1], max_prob_propagation=prop,
+                devices=_activity_devices(cfg))
     else:
         raw_probs = active_probabilities(gls, cfg.ploidy,
                                          cfg.snp_heterozygosity,
@@ -679,7 +705,8 @@ def _call_contigs(spec, fasta, bams, cfg, engine, limit,
         # cores just multiplies startup + decode; clamp to the box
         n_pool = min(requested, os.cpu_count() or requested)
         pool = get_pool(spec.fasta, [b.path for b in bams], cfg, n_pool,
-                        device_service=not _cpu_only_backend(cfg))
+                        device_service=not _cpu_only_backend(cfg)
+                        or getattr(cfg, "device_activity", False))
         return _call_contigs_pooled(spec, fasta, bams, cfg, limit,
                                     checkpoint_dir, cfg_fp, min_size, pool)
     if n_workers <= 1 or len(spec.contigs) <= 1:
@@ -1070,14 +1097,6 @@ def start_engine(mode: str, references: list, bam_paths: list,
     per genome, artifact-presence caching unless `force`
     (lorikeet_engine.rs:135-157)."""
     cfg = cfg or CallerConfig()
-    if (getattr(cfg, "threads", 1) or 1) > 1 and _device_activity(cfg):
-        # checked here, before the per-genome try in _process_genome could
-        # turn it into a per-genome error record: pool workers hold no
-        # card, and the parent's service does not run the activity chain
-        raise ValueError(
-            f"-t {cfg.threads} with LORIKEET_DEVICE_ACTIVITY=1: the device "
-            "activity chain does not run in -t pool workers; pass -t 1 or "
-            "unset LORIKEET_DEVICE_ACTIVITY")
     os.makedirs(output_dir, exist_ok=True)
     _configure_devices(cfg)
     specs = discover_genomes(references, genome_dir, extension)

@@ -25,6 +25,8 @@ from lorikeet_tpu.testkit.simulate import Variant, simulate_reads
 import lorikeet_tpu_torch.calling.engine as tengine
 import lorikeet_tpu_torch.calling.likelihoods as tlk
 import lorikeet_tpu_torch.processing as tproc
+from lorikeet_tpu_torch.parallel import pool as tpool
+from lorikeet_tpu_torch.parallel import sharding as tshard
 
 QUAL_TOL = 0.1
 RENAMED = {"use_pallas": "use_cuda", "use_pallas_sw": "use_cuda_sw"}
@@ -38,6 +40,16 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def cpu_cards(monkeypatch, n=1) -> list:
+    """``n`` CPU devices in the place of the visible cards: a run's
+    ``--devices`` picks from them, and until one configures, the device
+    list is the first (the kernels' plain versions run on them)."""
+    cards = [torch.device("cpu")] * n
+    monkeypatch.setattr(tshard, "visible_cards", lambda: cards)
+    monkeypatch.setattr(tshard, "_DEVICES", None)
+    return cards
 
 
 def simulate_fixture(tmp, length=3000, coverage=20, seed=3,
@@ -113,7 +125,7 @@ def test_f64_path_vcf_byte_identical(fixture3k, tmp_path):
 def test_device_path_matches_jax_interpret(fixture3k, tmp_path, monkeypatch):
     fasta, bams, _ = fixture3k
     monkeypatch.setattr(jlk, "PALLAS_INTERPRET", True)
-    monkeypatch.setattr(tlk, "PAIRHMM_DEVICE", "cpu")
+    cpu_cards(monkeypatch)
     cfg = jengine.CallerConfig(use_pallas=True)
     cfg.devices = 1
     try:
@@ -175,14 +187,30 @@ def test_config_field_set_parity():
 
 def test_start_engine_rejects_threads_up_front(fixture3k, tmp_path,
                                               monkeypatch):
-    """-t above 1 with the device activity chain is refused before any
-    output directory is made: pool workers hold no card."""
+    """-t 2 with the device activity chain is no longer refused: the pool
+    workers send each span's chain to the parent's service ("act"), which
+    runs it on the run's device (the CPU here, under use_cuda False), and
+    the VCF is the -t 1 one.  The workers import no torch."""
     fasta, bams, _ = fixture3k
     monkeypatch.setenv("LORIKEET_DEVICE_ACTIVITY", "1")
-    cfg = tengine.CallerConfig(use_cuda=False, threads=2)
-    with pytest.raises(ValueError, match="LORIKEET_DEVICE_ACTIVITY"):
-        tproc.start_engine("call", [fasta], bams, str(tmp_path / "o"), cfg)
-    assert not (tmp_path / "o").exists()
+    monkeypatch.setattr(tproc, "_pool_worthwhile", lambda *a: True)
+    monkeypatch.setattr(tpool, "WORKER_COUNTS",
+                        dict.fromkeys(tpool.WORKER_COUNTS, 0))
+    monkeypatch.setattr(tpool, "WORKER_REPORTS", {})
+    out = {}
+    try:
+        for t in (1, 2):
+            res = tproc.start_engine(
+                "call", [fasta], bams, str(tmp_path / f"t{t}"),
+                tengine.CallerConfig(use_cuda=False, threads=t))
+            (out[t],) = [r["vcf"] for r in res.values()]
+    finally:
+        tpool.shutdown_pool()
+    with open(out[1], "rb") as a, open(out[2], "rb") as b:
+        assert a.read() == b.read()
+    assert tpool.WORKER_COUNTS["act_spans"] > 0
+    reports = list(tpool.WORKER_REPORTS.values())
+    assert reports and not any(r["torch_imported"] for r in reports)
 
 
 def test_start_engine_threads_8_writes_the_t1_vcf(fixture3k, tmp_path):
@@ -201,6 +229,7 @@ def test_start_engine_threads_8_writes_the_t1_vcf(fixture3k, tmp_path):
 def test_configure_devices(monkeypatch):
     import torch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(tshard, "_DEVICES", None)
     # use_cuda=None means the card: no card is an error, never the host
     cfg = tengine.CallerConfig()
     assert not tproc._cpu_only_backend(cfg)
@@ -210,26 +239,24 @@ def test_configure_devices(monkeypatch):
         tlk.compute_pair_likelihoods([object()], None)
     with pytest.raises(RuntimeError, match="CUDA"):
         tproc._configure_devices(tengine.CallerConfig(use_cuda=True))
+    cpu = [torch.device("cpu")]
     host = tengine.CallerConfig(use_cuda=False)
     tproc._configure_devices(host)
     assert host.use_cuda is False and tproc._cpu_only_backend(host)
+    assert tshard.get_devices() == cpu and host.device_activity is False
     # the tests' switch: the plain version through the same path
-    monkeypatch.setattr(tlk, "PAIRHMM_DEVICE", "cpu")
+    cpu_cards(monkeypatch)
     cfg = tengine.CallerConfig()
     tproc._configure_devices(cfg)
     assert cfg.use_cuda is True and not tproc._cpu_only_backend(cfg)
-    bad = tengine.CallerConfig(use_cuda=False)
-    bad.devices = "4"
-    with pytest.raises(ValueError, match="--devices"):
-        tproc._configure_devices(bad)
+    # one device, and CPU devices are no cards: the host chain
+    assert tshard.get_devices() == cpu and cfg.device_activity is False
     monkeypatch.setenv("LORIKEET_DEVICE_ACTIVITY", "1")
-    assert tproc._device_activity(cfg) is True
-    assert tproc._activity_device(cfg) == "cpu"
-    assert tproc._activity_device(host) == "cpu"
-    monkeypatch.setattr(tlk, "PAIRHMM_DEVICE", "cuda")
-    assert tproc._activity_device(cfg) == "cuda"
+    assert tproc._device_activity(cfg, cpu) is True
+    assert tproc._activity_devices(cfg) == cpu
+    assert tproc._activity_devices(host) == cpu
     monkeypatch.setenv("LORIKEET_DEVICE_ACTIVITY", "0")
-    assert tproc._device_activity(cfg) is False
+    assert tproc._device_activity(cfg, cpu) is False
 
 
 def test_device_activity_vcf_matches_jax(fixture3k, tmp_path, monkeypatch):
@@ -244,12 +271,12 @@ def test_device_activity_vcf_matches_jax(fixture3k, tmp_path, monkeypatch):
     real = pipeline.smoothed_activity_device
     monkeypatch.setattr(
         pipeline, "smoothed_activity_device",
-        lambda *a, **k: calls.append(k["device"]) or real(*a, **k))
+        lambda *a, **k: calls.append(k["devices"]) or real(*a, **k))
     vj = jax_run_call(fasta, bams, str(tmp_path / "jax"),
                       jengine.CallerConfig(use_pallas=False))
     vt = tproc.run_call(fasta, bams, str(tmp_path / "torch"),
                         tengine.CallerConfig(use_cuda=False))
-    assert calls and set(calls) == {"cpu"}
+    assert calls and all(d == [torch.device("cpu")] for d in calls)
     bj = [ln for ln in open(vj) if not ln.startswith("##")]
     bt = [ln for ln in open(vt) if not ln.startswith("##")]
     assert bj == bt

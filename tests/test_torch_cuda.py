@@ -144,12 +144,32 @@ def test_grouped_jobs_on_a_side_stream(cuda):
     want = [pc.pairhmm_forward_grouped(p, cuda) for p in batches]
     stream = torch.cuda.Stream(cuda)
     launches = pc.LAUNCHES
-    handles = [pc.enqueue_grouped_jobs(*pc.prepare_grouped_jobs(p), cuda,
-                                       stream) for p in batches]
+    handles = [pc.enqueue_grouped_jobs(*pc.prepare_grouped_jobs(p), [cuda],
+                                       [stream]) for p in batches]
     assert pc.LAUNCHES == launches + 2
     for handle, w in zip(handles, want):
         got = pc.readback_grouped(handle)
         assert got.dtype == np.float64 and np.array_equal(got, w)
+
+
+def test_grouped_split_over_the_device_list(cuda):
+    """A batch over a device list of two (the first two cards, or the one
+    card twice), a stream each: every position launches its share of the
+    table blocks and the values are one card's, bit for bit."""
+    rng = np.random.default_rng(78)
+    pairs = _region(rng, 100) + _region(rng, 250, 9, 3)
+    want = pc.pairhmm_forward_grouped(pairs, cuda)
+    second = 1 if torch.cuda.device_count() > 1 else 0
+    devices = [torch.device("cuda", 0), torch.device("cuda", second)]
+    streams = [torch.cuda.Stream(d) for d in devices]
+    launches = pc.LAUNCHES
+    before = dict(pc.CARD_LAUNCHES)
+    got = pc.readback_grouped(pc.enqueue_grouped_jobs(
+        *pc.prepare_grouped_jobs(pairs), devices, streams))
+    assert pc.LAUNCHES == launches + 2
+    assert all(pc.CARD_LAUNCHES.get(i, 0) == before.get(i, 0) + 1
+               for i in (0, 1))
+    assert got.dtype == np.float64 and np.array_equal(got, want)
 
 
 def test_kernel_rejects_bad_inputs(cuda):

@@ -249,7 +249,8 @@ def test_wrapper_takes_plain_version_only_on_cpu(monkeypatch):
 
 
 def test_compute_pair_likelihoods_routes_every_batch_to_device(monkeypatch):
-    monkeypatch.setattr(tlk, "PAIRHMM_DEVICE", "cpu")
+    from lorikeet_tpu_torch.parallel import sharding
+    monkeypatch.setattr(sharding, "_DEVICES", [torch.device("cpu")])
     pairs = _region_pairs(9)
     before = dict(tlk.DISPATCH_COUNTS)
     got = tlk.compute_pair_likelihoods(pairs, use_cuda=True)

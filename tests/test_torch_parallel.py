@@ -231,7 +231,7 @@ def test_activity_chain_matches_jax_and_host(case):
     gls, hq, ploidy = ACTIVITY_CASES[case]()
     jshard.set_mesh(None)
     want = jpipe.smoothed_activity_device(gls, hq, ploidy)
-    got = tpipe.smoothed_activity_device(gls, hq, ploidy, device="cpu")
+    got = tpipe.smoothed_activity_device(gls, hq, ploidy, devices="cpu")
     assert got.dtype == np.float32 and got.shape == want.shape
     assert got.max() > 0.01
     np.testing.assert_allclose(got, want, rtol=0, atol=ACT_JAX_TOL)
@@ -248,7 +248,7 @@ def test_activity_expansion_past_the_right_end_follows_the_host():
     gls, hq, ploidy = _both_ends()
     hq[698] = 30.0
     hq[2] = 30.0
-    got = tpipe.smoothed_activity_device(gls, hq, ploidy, device="cpu")
+    got = tpipe.smoothed_activity_device(gls, hq, ploidy, devices="cpu")
     host = band_pass_smooth(active_probabilities(gls, ploidy), hq)
     np.testing.assert_allclose(got, host, rtol=0, atol=ACT_HOST_TOL)
     # the position-split form cuts the expansion at the same two positions
@@ -349,10 +349,11 @@ if rank == 0:
     for key in ("sm", "full", "ends"):
         assert one[key].max() > 0.01
         assert np.allclose(one[key], two[key], rtol=0, atol=1e-6), key
-    single = pipeline.smoothed_activity_device(gls, hq, ploidy, device="cpu")
+    single = pipeline.smoothed_activity_device(gls, hq, ploidy,
+                                               devices="cpu")
     assert np.allclose(single, two["full"], rtol=0, atol=1e-6)
     single = pipeline.smoothed_activity_device(end_gls, end_hq, ploidy,
-                                               device="cpu")
+                                               devices="cpu")
     for got in (one["ends"], two["ends"]):
         assert np.allclose(single, got, rtol=0, atol=1e-6)
     open(out, "w").write("ok")

@@ -1,9 +1,9 @@
 """The port's span-worker pool (lorikeet_tpu_torch.parallel.pool) on the CPU.
 
 The workers are spawned processes that hold no card; the parent's device
-service runs the plain versions here (``likelihoods.PAIRHMM_DEVICE`` and
-``sw_cuda.SW_DEVICE`` set to "cpu"), through the same requests the card
-serves.  Checked: the pooled calls equal the port's serial path and the JAX
+service runs the plain versions here (CPU devices in the cards' place in
+``parallel.sharding``, ``sw_cuda.SW_DEVICE`` set to "cpu"), through the
+same requests the cards serve.  Checked: the pooled calls equal the port's serial path and the JAX
 package's; the service takes every pair-HMM batch (and under
 ``use_cuda_sw`` every SW batch) and the workers compute none on their own
 host; a deletion carried across a span boundary as the serial loop carries
@@ -36,6 +36,7 @@ from lorikeet_tpu_torch.io.fasta import FastaReader
 from lorikeet_tpu_torch.ops import pairhmm_cuda
 from lorikeet_tpu_torch.ops import sw_cuda
 from lorikeet_tpu_torch.parallel import pool as pool_mod
+from lorikeet_tpu_torch.parallel import sharding
 from lorikeet_tpu_torch import processing as tproc
 from lorikeet_tpu_torch.testkit.dataset import simulate_dataset
 
@@ -57,7 +58,9 @@ def _one_torch_thread():
 def plain_devices(monkeypatch):
     """The card's kernels replaced by their plain versions, in this
     process, which runs the device service."""
-    monkeypatch.setattr(tlk, "PAIRHMM_DEVICE", "cpu")
+    cpu = [torch.device("cpu")]
+    monkeypatch.setattr(sharding, "visible_cards", lambda: cpu)
+    monkeypatch.setattr(sharding, "_DEVICES", cpu)
     monkeypatch.setattr(sw_cuda, "SW_DEVICE", "cpu")
     monkeypatch.setattr(tlk, "DISPATCH_COUNTS",
                         dict.fromkeys(tlk.DISPATCH_COUNTS, 0))
@@ -111,7 +114,7 @@ def serial80_plain(genome80):
     cases (the SW route leaves the calls bit-identical)."""
     fasta, bams, _ = genome80
     mp = pytest.MonkeyPatch()
-    mp.setattr(tlk, "PAIRHMM_DEVICE", "cpu")
+    mp.setattr(sharding, "_DEVICES", [torch.device("cpu")])
     mp.setattr(sw_cuda, "SW_DEVICE", "cpu")
     before = dict(sw_cuda.SW_COUNTS)
     try:
@@ -169,6 +172,41 @@ def test_device_service_runs_every_batch(genome80, serial80_plain,
             assert report["torch_imported"] is False
             assert report["cuda_initialized"] is False
             assert report["foreign_modules"] == []
+
+
+@pytest.mark.parametrize("n_devices, activity", [(2, False), (1, True),
+                                                 (2, True)],
+                         ids=["two_devices", "act", "two_devices_act"])
+def test_service_over_devices_and_activity(genome80, plain_devices,
+                                           monkeypatch, n_devices, activity):
+    """The service splits each pair batch over the run's device list (two
+    CPU devices here: both positions launch) and, when the run takes the
+    device activity chain, runs every span's chain for the workers ("act"
+    requests) over the same list; the calls are the serial run's on the
+    same list, and the workers import no torch."""
+    fasta, bams, _ = genome80
+    monkeypatch.setattr(sharding, "_DEVICES", [torch.device("cpu")]
+                        * n_devices)
+    cfg = CallerConfig(use_cuda=True, threads=2)
+    cfg.device_activity = activity
+    serial = _serial(fasta, bams, cfg)
+    cards = []
+    real = pairhmm_cuda.pairhmm_grouped_cuda
+    monkeypatch.setattr(pairhmm_cuda, "pairhmm_grouped_cuda",
+                        lambda t, card=0: cards.append(card) or real(t, card))
+    try:
+        pooled, pool = _pooled(fasta, bams, cfg, device_service=True)
+    finally:
+        pool_mod.shutdown_pool()
+    assert _key(pooled.calls) == _key(serial.calls) and serial.calls
+    assert pooled.n_regions == serial.n_regions
+    assert pooled.depth_pass_rle == serial.depth_pass_rle
+    assert sorted(set(cards)) == list(range(n_devices))
+    assert pool_mod.WORKER_COUNTS == {"lk_batches": 1, "sw_batches": 0,
+                                      "act_spans": int(activity)}
+    reports = [pool_mod.WORKER_REPORTS.get(w.pid) for w in pool.workers]
+    assert any(reports)
+    assert not any(r["torch_imported"] for r in reports if r)
 
 
 def test_pool_reused_across_genomes(genome260, tmp_path):
@@ -282,6 +320,34 @@ def test_deletion_carried_across_span_boundary(boundary_deletions,
     assert pooled.depth_pass_rle == serial.depth_pass_rle
 
 
+def test_act_requests_follow_the_pending_reply(boundary_deletions,
+                                              plain_devices, monkeypatch):
+    """Four 4 kb spans over two workers with the pair-HMM and the activity
+    chain on the service: a worker's "act" request for its next span goes
+    out while the reply to its last "lk" request is still due, so that
+    reply is taken first.  Calls, spans' chains and batches as serial."""
+    fasta, bams, _ = boundary_deletions
+    monkeypatch.setattr(tproc, "_chunk_size", lambda n, cfg: BOUNDARY)
+    monkeypatch.setattr(pool_mod, "SPAN_RERUNS", {"spans": 0})
+    monkeypatch.setattr(pool_mod, "WORKER_REPORTS", {})
+    cfg = CallerConfig(use_cuda=True, max_assembly_region_size=100,
+                       threads=2)
+    cfg.device_activity = True
+    serial = _serial(fasta, bams, cfg)
+    try:
+        pooled, _ = _pooled(fasta, bams, cfg, device_service=True)
+    finally:
+        pool_mod.shutdown_pool()
+    spans = 4 + pool_mod.SPAN_RERUNS["spans"]
+    assert pool_mod.WORKER_COUNTS["act_spans"] == spans
+    assert pool_mod.WORKER_COUNTS["lk_batches"] == spans
+    assert tlk.DISPATCH_COUNTS["remote"] == spans
+    assert _key(pooled.calls) == _key(serial.calls) and serial.calls
+    assert pooled.depth_pass_rle == serial.depth_pass_rle
+    reports = list(pool_mod.WORKER_REPORTS.values())
+    assert reports and not any(r["torch_imported"] for r in reports)
+
+
 def test_carry_deletions_replays_the_engine_check():
     """carry_deletions prunes and tests as _covered_by_upstream_deletion
     does: another contig or a site past a deletion's end drops it, a site
@@ -360,12 +426,13 @@ POOLED_CLI = """
 import sys
 sys.path.insert(0, {tests!r})
 from lorikeet_tpu_torch import processing
+import torch
 from lorikeet_tpu_torch.calling import likelihoods
 from lorikeet_tpu_torch.ops import sw_cuda
-from lorikeet_tpu_torch.parallel import pool
+from lorikeet_tpu_torch.parallel import pool, sharding
 from lorikeet_tpu_torch.cli import main
 processing._pool_worthwhile = lambda *a: True
-likelihoods.PAIRHMM_DEVICE = "cpu"
+sharding.visible_cards = lambda: [torch.device("cpu")]
 sw_cuda.SW_DEVICE = "cpu"
 rc = main({args!r})
 reports = list(pool.WORKER_REPORTS.values())
