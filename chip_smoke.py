@@ -77,6 +77,24 @@ Phases, one JSON line each; any failure exits non-zero without the final
            span's chain an "act" request to the service.  On each two-card
            leg both list positions launch K2 and no batch runs on a host;
            no -t 4 worker imports torch.
+8c. strains  `genotype --qual-by-depth-filter 8` on three simulated strain
+           mixtures (testkit.strains, built from bench.py's seeds):
+           `strains_2` (100 kb, two strains of 40 random SNPs, four samples
+           at 30x) and `strains_linked` (40 kb, SNPs every 240 bp at offsets
+           0 and 120) at -t 1 and -t 4 on the card and at -t 1 under
+           --force-cpu; `strains_12` (1 Mbp, three strains with a SNP about
+           every 3 kb each, twelve samples mixed by a seeded Dirichlet, 15x
+           each) at -t 4 on the card and under --force-cpu.  The -t 4 files
+           equal the -t 1 ones; card and f64 legs call the same sites,
+           alleles, GT, VG and ST, QUAL within 0.1; strains_2's variant
+           groups are pure and complete and strains_linked's ST sets are the
+           planted strains (bench.py's bars); every leg clusters once with
+           the port's HDBSCAN (strains_12 after umap_embed) and imports no
+           scikit-learn; card legs launch K2 and run no pair batch on a
+           host.  The earlier phases' pools are alive, so at -t 4 the two
+           small genomes ride a pool as a follow-on genome does.  The
+           clustering is timed again on the card leg's VCF (read_vcf ->
+           split_contexts -> cluster_variants): umap_embed and HDBSCAN.
 9. main_path  the largest pair-HMM batch of the first card leg, replayed:
            grouped kernel against the plain version, both timed; and the
            same batch one row per pair through the flat kernel
@@ -172,6 +190,18 @@ DEVICE_LEGS = (
     ("gpu_2card_t4", POOL_THREADS, True, {}, "gpu", True),
     ("gpu_act_t4", POOL_THREADS, False, {"LORIKEET_DEVICE_ACTIVITY": "1"},
      "gpu_act", True))
+#: the `strains` phase's legs: (label, `genotype` flags, -t); each adds
+#: STRAIN_FLAGS, as bench.py runs its genotype datasets.  The first card
+#: leg is held against the f64 leg; a -t 4 leg against the -t 1 card leg
+STRAIN_FLAGS = ["--qual-by-depth-filter", "8"]
+STRAIN_LEGS_4 = (("gpu", [], 1), ("gpu_t4", [], POOL_THREADS),
+                 ("f64", ["--force-cpu"], 1))
+STRAIN_LEGS_12 = (("gpu_t4", [], POOL_THREADS),
+                  ("f64_t4", ["--force-cpu"], POOL_THREADS))
+#: strains_12's genome (kbp) and its samples; cut the length, never the
+#: samples, if the smoke nears its limit
+STRAINS_12_KBP = 1000
+STRAINS_12_SAMPLES = 12
 
 
 def emit(phase: str, **fields):
@@ -774,13 +804,18 @@ def sw_kernel_phase(rng, dev, timed=True) -> list:
     return out + [long_]
 
 
-def read_sites(vcf):
+def read_sites(vcf, tags=()):
+    """[((POS, REF, ALT, GT..., the INFO values of ``tags``), QUAL)]."""
     sites = []
     for line in open(vcf):
         if line.startswith("#"):
             continue
         f = line.rstrip("\n").split("\t")
         key = (int(f[1]), f[3], f[4]) + tuple(s.split(":")[0] for s in f[9:])
+        if tags:
+            info = dict(kv.split("=", 1) for kv in f[7].split(";")
+                        if "=" in kv)
+            key += tuple(info.get(t) for t in tags)
         sites.append((key, float(f[5])))
     return sites
 
@@ -912,7 +947,10 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
            "span_reruns": pool.SPAN_RERUNS["spans"],
            "workers": sorted(pool.WORKER_REPORTS.values(),
                              key=lambda r: r["wid"]),
-           "env": env, "vcf": out["vcf"], "files": output_files(out)}
+           "env": env, "vcf": out["vcf"], "files": output_files(out),
+           "timings": out.get("timings", {}),
+           "n_variant_groups": out.get("n_variant_groups"),
+           "n_strains": out.get("n_strains")}
     return leg, largest["pairs"], sw_largest["pairs"], activity["span"]
 
 
@@ -1234,6 +1272,148 @@ def devices_phase(root, fasta, bams, legs) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def clustering_clock():
+    """{name: [calls, seconds, points of the last call]} of umap_embed and
+    of HDBSCAN.fit_predict (the port's, numpy) while the block runs."""
+    from lorikeet_tpu_torch.strain import hdbscan, umap
+    spent = {"umap_embed": [0, 0.0, 0], "hdbscan": [0, 0.0, 0]}
+    embed, fit = umap.umap_embed, hdbscan.HDBSCAN.fit_predict
+
+    def clocked(key, fn, x_arg):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[key][0] += 1
+                spent[key][1] += time.perf_counter() - t0
+                spent[key][2] = len(args[x_arg])
+        return run
+
+    umap.umap_embed = clocked("umap_embed", embed, 0)
+    hdbscan.HDBSCAN.fit_predict = clocked("hdbscan", fit, 1)
+    try:
+        yield spent
+    finally:
+        umap.umap_embed = embed
+        hdbscan.HDBSCAN.fit_predict = fit
+
+
+def clustering_seconds(vcf) -> dict:
+    """read_vcf -> split_contexts -> cluster_variants on a `genotype` leg's
+    VCF, as run_genotype clusters, timed in the smoke: the whole and its
+    umap_embed and HDBSCAN parts."""
+    from lorikeet_tpu_torch.io.vcf import read_vcf
+    from lorikeet_tpu_torch.strain import genotype_mode
+    with clustering_clock() as spent:
+        t0 = time.perf_counter()
+        contexts, _, _ = read_vcf(vcf)
+        split, _ = genotype_mode.split_contexts(contexts, 8.0)
+        t1 = time.perf_counter()
+        labels, _ = genotype_mode.cluster_variants(split)
+        t2 = time.perf_counter()
+    return {"split_contexts": len(split),
+            "groups": len(set(labels.tolist()) - {-1}),
+            "read_split_s": t1 - t0, "cluster_s": t2 - t1,
+            "umap_embed_s": spent["umap_embed"][1],
+            "hdbscan_s": spent["hdbscan"][1],
+            "umap_calls": spent["umap_embed"][0]}
+
+
+def strain_dataset_phase(root, name, build, legs) -> dict:
+    """`genotype` legs on one simulated strain mixture (see the module
+    docstring): -t 4 files equal to -t 1's, card against f64 (sites,
+    alleles, GT, VG and ST; QUAL within 0.1), K2 on the card legs with no
+    host batch, no scikit-learn imported; bench.py's strain checks."""
+    from lorikeet_tpu_torch.testkit import strains
+    t0 = time.perf_counter()
+    fasta, bams, truth = build(os.path.join(root, name))
+    emit("strains_simulate", dataset=name, samples=len(bams),
+         planted=[len(t) for t in truth], seconds=time.perf_counter() - t0)
+    out = {}
+    for label, flags, threads in legs:
+        with clustering_clock() as spent:
+            leg, *_ = call_leg(f"{name}_{label}", fasta, bams,
+                               os.path.join(root, f"{name}_{label}"),
+                               [*flags, *STRAIN_FLAGS], threads=threads,
+                               mode="genotype")
+        check("sklearn" not in sys.modules,
+              f"{name} {label}: scikit-learn was imported")
+        dispatch = leg["dispatch"]
+        if "--force-cpu" in flags:
+            check(leg["launches"] == 0 and dispatch["device"] == 0,
+                  f"{name} {label}: the pair-HMM ran on the device")
+        else:
+            # at -t 4 the pool serves the spans: the earlier phases' pools
+            # are alive, so a genome under the pool's size gate rides one
+            # (processing._pool_worthwhile)
+            check(leg["launches"] > 0 and dispatch["host"] == 0
+                  and (dispatch["remote"] > 0) == (threads > 1),
+                  f"{name} {label}: K2 launches {leg['launches']}, "
+                  f"dispatch {dispatch}")
+        check(spent["hdbscan"][0] == 1
+              and spent["umap_embed"][0] == (len(bams) > 8),
+              f"{name} {label}: clustering calls {spent}")
+        score = strains.groups_pure_complete(leg["vcf"], truth)
+        leg.update(score, strains_exact=strains.strains_exact(leg["vcf"],
+                                                               truth))
+        emit("strains", dataset=name, leg=label, threads=threads,
+             samples=len(bams), wall_s=leg["wall_s"],
+             genotype_s=leg["timings"].get("genotype"),
+             call_s=leg["timings"].get("call"),
+             n_variant_groups=leg["n_variant_groups"],
+             n_strains=leg["n_strains"], launches=leg["launches"],
+             dispatch=dispatch, span_reruns=leg["span_reruns"],
+             umap_calls=spent["umap_embed"][0],
+             hdbscan_calls=spent["hdbscan"][0],
+             clustered_contexts=spent["hdbscan"][2], pure=score["pure"],
+             complete=score["complete"], strains_exact=leg["strains_exact"],
+             stages_s=leg["stages_s"])
+        out[label] = leg
+    card = next(leg for label, leg in out.items() if label.startswith("gpu"))
+    f64 = next(leg for label, leg in out.items() if label.startswith("f64"))
+    if "gpu" in out and "gpu_t4" in out:
+        diff = same_files(out["gpu"]["files"], out["gpu_t4"]["files"])
+        check(not diff, f"{name}: -t 4 files {diff} differ from -t 1's")
+    sc = read_sites(card["vcf"], ("VG", "ST"))
+    sf = read_sites(f64["vcf"], ("VG", "ST"))
+    check([k for k, _ in sc] == [k for k, _ in sf], f"{name}: card and f64 "
+          "legs differ in sites, alleles, GT, VG or ST")
+    dq = max((abs(a - b) for (_, a), (_, b) in zip(sc, sf)), default=0.0)
+    check(dq <= QUAL_TOL, f"{name}: QUAL differs by {dq} > {QUAL_TOL}")
+    timing = clustering_seconds(card["vcf"])
+    emit("strains_compare", dataset=name, sites=len(sc), max_qual_diff=dq,
+         t4_files_identical=True if "gpu_t4" in out and "gpu" in out
+         else None,
+         n_variant_groups=card["n_variant_groups"],
+         n_strains=card["n_strains"], pure=card["pure"],
+         complete=card["complete"], pure_complete=card["pure_complete"],
+         strains_exact=card["strains_exact"], **timing)
+    return out
+
+
+def strains_phase(root) -> dict:
+    """The three strain datasets (see the module docstring)."""
+    from lorikeet_tpu_torch.testkit import strains
+    t0 = time.perf_counter()
+    two = strain_dataset_phase(root, "strains_2", strains.genotype_dataset,
+                               STRAIN_LEGS_4)
+    check(all(leg["pure_complete"] for leg in two.values()),
+          "strains_2: variant groups not pure and complete")
+    linked = strain_dataset_phase(root, "strains_linked",
+                                  strains.linked_dataset, STRAIN_LEGS_4)
+    check(all(leg["strains_exact"] for leg in linked.values()),
+          "strains_linked: the ST sets are not the planted strains")
+    twelve = strain_dataset_phase(
+        root, "strains_12", lambda path: strains.time_series_dataset(
+            path, STRAINS_12_KBP * 1000, samples=STRAINS_12_SAMPLES,
+            processes=min(8, os.cpu_count() or 1)), STRAIN_LEGS_12)
+    emit("strains_done", seconds=time.perf_counter() - t0)
+    return {"strains_2": two, "strains_linked": linked,
+            "strains_12": twelve}
+
+
 def sw_main_path_phase(pairs, dev) -> dict:
     """The largest realignment SW batch of the first card leg, replayed at
     the main path's own settings: kernel, plain version and native aligner
@@ -1289,6 +1469,7 @@ def device_busy(trace_path: str, wall_s: float) -> dict:
 
 
 def main() -> int:
+    started = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1333,6 +1514,7 @@ def main() -> int:
         pool_phase(root, *dataset[:2], legs)
         genotype_phase(root, *dataset[:2])
         devices_phase(root, *dataset[:2], legs)
+        strains_phase(root)
         # the main path's largest batches, replayed after the counted run:
         # each kernel at the shapes the main path gives it
         main_batch = kernel_phase("main_path", batch, dev, timed=True)
@@ -1357,6 +1539,8 @@ def main() -> int:
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "lorikeet_tpu", "bench_e2e"))
     check(not foreign, f"modules outside the port were imported: {foreign}")
+
+    emit("elapsed", seconds=time.perf_counter() - started)
 
     def times(c):
         # no single PyTorch call computes a pair-HMM forward or an

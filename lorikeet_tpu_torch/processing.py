@@ -1116,17 +1116,6 @@ def start_engine(mode: str, references: list, bam_paths: list,
     cfg.process_index, cfg.process_count = pidx, pcnt
     if not cfg.chunk_shard:
         specs = host_shard(specs, pidx, pcnt)
-    if mode == "genotype":
-        # sklearn's import chain costs ~5s; overlap it with calling so the
-        # clustering stage finds it warm
-        import threading
-
-        def _warm():
-            try:
-                import sklearn.cluster  # noqa: F401
-            except Exception:  # noqa: BLE001 — clustering will report it
-                pass
-        threading.Thread(target=_warm, daemon=True).start()
     # long-read samples follow the short-read samples, as in the reference
     # (haplotype_caller_engine.rs:515-524)
     long_bam_paths = long_bam_paths or []

@@ -8,7 +8,7 @@ Contracts:
   shells out to the external Python tool `flight` (UMAP + HDBSCAN); here
   clustering runs fully in-process: a seeded UMAP embedding
   (lorikeet_tpu.strain.umap, no subprocess/file IPC) followed by HDBSCAN
-  via scikit-learn;
+  (the port's numpy counterpart of scikit-learn's, strain/hdbscan.py);
 - linkage_engine.rs:73-1202 groups variant groups into strains via
   co-occurrence; round-1 strains = variant groups plus the reference strain
   heuristic (abundance_calculator_engine.rs:485);
@@ -140,7 +140,7 @@ def cluster_variants(contexts, min_cluster_size: int = 5,
             key = tuple(np.round(X[i], 1))
             labels[i] = keys.setdefault(key, len(keys))
     else:
-        from sklearn.cluster import HDBSCAN
+        from lorikeet_tpu_torch.strain.hdbscan import HDBSCAN
         # min cluster size scales with the variant count so dense profiles
         # aren't shattered into micro-groups
         mcs = min(max(min_cluster_size, n // 25), max(2, n // 2))

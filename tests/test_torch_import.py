@@ -35,10 +35,11 @@ def _run(code, cwd=REPO, timeout=240):
 
 
 #: run in the subprocess after the port's code: nothing of jax, of the JAX
-#: package or of its benchmark script may have been imported
+#: package, of its benchmark script or of scikit-learn (the port clusters
+#: with its own HDBSCAN) may have been imported
 NO_JAX_PACKAGE = (
     "bad = [m for m in sys.modules if m.split('.')[0] in "
-    "('jax', 'jaxlib', 'lorikeet_tpu', 'bench_e2e')]\n"
+    "('jax', 'jaxlib', 'lorikeet_tpu', 'bench_e2e', 'sklearn')]\n"
     "assert not bad, f'imported: {bad}'\n")
 
 
@@ -102,6 +103,41 @@ def test_cli_call_runs_without_jax(tmp_path):
         == open(vcf).read()
 
 
+GENOTYPE_FIXTURE = """
+from lorikeet_tpu_torch.testkit.strains import genotype_dataset
+fasta, bams, _ = genotype_dataset({tmp!r}, length=24_000, n_snps=10)
+print(fasta, *bams)
+"""
+
+
+def test_cli_genotype_runs_without_jax_or_sklearn(tmp_path):
+    """`genotype` on two strains of 10 SNPs: 20 split contexts reach
+    clustering (HDBSCAN from 4), and neither scikit-learn nor jax is
+    imported."""
+    res = _run(GENOTYPE_FIXTURE.format(tmp=str(tmp_path)))
+    assert res.returncode == 0, res.stderr
+    fasta, *bams = res.stdout.split()
+    out = str(tmp_path / "out")
+    args = ["genotype", "-t", "1", "--force-cpu", "--qual-by-depth-filter",
+            "8", "-r", fasta, "-b", *bams, "-o", out]
+    res = _run("import contextlib, io, json, sys\n"
+               "from lorikeet_tpu_torch.cli import main\n"
+               "from lorikeet_tpu_torch.io.vcf import read_vcf\n"
+               "from lorikeet_tpu_torch.strain.genotype_mode import "
+               "split_contexts\n"
+               "buf = io.StringIO()\n"
+               "with contextlib.redirect_stdout(buf):\n"
+               f"    rc = main({args!r})\n"
+               "(g,) = json.loads(buf.getvalue().strip().splitlines()[-1])"
+               "['outputs']['genomes'].values()\n"
+               "split, _ = split_contexts(read_vcf(g['vcf'])[0], 8.0)\n"
+               "print(len(split), g['n_variant_groups'])\n"
+               + NO_JAX_PACKAGE + "sys.exit(rc)", cwd=str(tmp_path))
+    assert res.returncode == 0, res.stderr
+    n_split, n_groups = map(int, res.stdout.split()[-2:])
+    assert n_split >= 4 and n_groups == 2
+
+
 def test_cli_refuses_unported_device_flags(tmp_path):
     """--devices 4 and --pallas-sw without a card are errors that name
     CUDA, never a silent host run (--devices N itself is ported)."""
@@ -158,13 +194,14 @@ def test_no_source_file_imports_the_jax_package():
 PORT_DIR = os.path.dirname(lorikeet_tpu_torch.__file__)
 ORIGINAL_DIR = os.path.join(REPO, "lorikeet_tpu")
 #: files of the same name whose code differs on purpose: the torch
-#: counterparts of the JAX modules, the loader that builds into build/, and
-#: the modules of which the port keeps only the part without jax
+#: counterparts of the JAX modules, the loader that builds into build/, the
+#: modules of which the port keeps only the part without jax, and the strain
+#: layer's clustering, which imports the port's HDBSCAN for scikit-learn's
 NOT_COPIES = {
     "cli.py", "processing.py", "ops/pairhmm.py", "calling/engine.py",
     "calling/likelihoods.py", "calling/realign.py", "parallel/hosts.py",
     "parallel/pipeline.py", "parallel/pool.py", "parallel/sharding.py",
-    "native/__init__.py", "utils/progress.py",
+    "native/__init__.py", "utils/progress.py", "strain/genotype_mode.py",
 }
 
 
@@ -180,13 +217,16 @@ def _shared_files():
     return sorted(found)
 
 
-def _python_code(path, rename):
+def _python_code(path, rename, swap=None):
     """The file's syntax tree without docstrings (comments never reach
-    it), as text."""
+    it), as text; ``swap`` (old, new) replaces one line after the rename."""
     with open(path) as fh:
         text = fh.read()
     if rename:
         text = text.replace("lorikeet_tpu_torch", "lorikeet_tpu")
+    if swap:
+        assert text.count(swap[0]) == 1, swap[0]
+        text = text.replace(*swap)
     tree = ast.parse(text)
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
@@ -226,3 +266,15 @@ def test_copied_host_module_equals_its_original(rel):
         assert _python_code(mine, True) == _python_code(theirs, False)
     else:
         assert _cpp_code(mine) == _cpp_code(theirs)
+
+
+def test_genotype_mode_differs_from_its_original_only_in_hdbscan():
+    """strain/genotype_mode.py is its original's code with one import
+    changed: the port's HDBSCAN for scikit-learn's."""
+    rel = "strain/genotype_mode.py"
+    port_import = "from lorikeet_tpu.strain.hdbscan import HDBSCAN"
+    assert _python_code(os.path.join(PORT_DIR, rel), True) \
+        != _python_code(os.path.join(ORIGINAL_DIR, rel), False)
+    assert _python_code(os.path.join(PORT_DIR, rel), True, swap=(
+        port_import, "from sklearn.cluster import HDBSCAN")) \
+        == _python_code(os.path.join(ORIGINAL_DIR, rel), False)
