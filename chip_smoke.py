@@ -95,6 +95,28 @@ Phases, one JSON line each; any failure exits non-zero without the final
            small genomes ride a pool as a follow-on genome does.  The
            clustering is timed again on the card leg's VCF (read_vcf ->
            split_contexts -> cluster_variants): umap_embed and HDBSCAN.
+8d. modes  the CLI's other modes on the same genome, each a card leg against
+           an f64 (--force-cpu) leg: same sites, alleles and genotypes, QUAL
+           within 0.1, every card leg's pair batches on K2 with none on a
+           host.  `mixed`: a long-read BAM of the planted variants at 10x
+           (testkit.longreads: 2-3 kb reads, 2 % substitutions, quality 22)
+           beside the short reads (`-l`), --pallas-sw at -t 4 and -t 1 on
+           the card (the same files) and -t 4 under --force-cpu; recall >=
+           0.99, K3 launches split by form, each pair batch's longest read
+           and haplotype, the escalation share, and the -t 1 leg's largest
+           K2 and SW batches replayed against their plain versions (the
+           `kernel` and `sw_main_path` lines `mixed_reads`, with pack_ms).
+           `consensus` (-l, -t 4): the consensus FASTAs byte-identical.
+           `summarise` on the mixed card and f64 VCFs: exit 0, the tables
+           written, the files that differ reported.  `chunk_shard`: `call
+           -t 1` in two processes at once (LORIKEET_PROCESS_INDEX 0 and 1 of
+           2; two CUDA contexts on the card), then two under --force-cpu:
+           both card processes launch K2, the gatherers' VCFs agree, and the
+           files that differ from the one-process -t 1 legs are reported.
+           `knobs`: --pcr-indel-model none, --pair-hmm-gap-continuation-
+           penalty 20, --phred-scaled-global-read-mismapping-rate 30 with
+           --disable-symmetric-hmm-normalizing, --use-adaptive-pruning and
+           --features-vcf on the planted truth, each at -t 4.
 9. main_path  the largest pair-HMM batch of the first card leg, replayed:
            grouped kernel against the plain version, both timed; and the
            same batch one row per pair through the flat kernel
@@ -110,16 +132,26 @@ Phases, one JSON line each; any failure exits non-zero without the final
            device-activity leg (its real gls and HQ means) against the host
            active_probabilities + band_pass_smooth (atol 2e-3), timed; and
            split over the two-card list (within 1e-5 of one card), timed.
+12b. nccl  initialize_distributed at world size 1 on the card (NCCL puts no
+           two ranks on one card): an all_reduce, an all_gather and a
+           barrier over NCCL, then pairhmm_forward_sharded on the main-path
+           batch, region_batch_step and sharded_smoothed_activity on the
+           `activity` span under that group, each against its result
+           without a group (1e-5; 2e-3 after the escalation and 1e-2 for
+           the depth totals; 1e-5); the group destroyed after.
 13. dryrun  parallel.dryrun.dryrun(1) on the card: the sharded activity
            step, the region-batch step and a small `call` over a planted SNP.
 14. trace  the default card leg, the --pallas-sw one and the -t 4 default
            leg again, each under torch.profiler, for the share of the run
            the card sits idle.
+15. entry  entry()'s fn, the batched pair-HMM wavefront (torch ops), on the
+           card against the same example on the host (1e-4), timed.
 
 The line before the last lists the three kernels (launches on the path that
-runs each, counted from 0 just before it; largest error against the plain
-version; main-path times; the bound, the least time the card could take for
-the same work), then the card's name and power limit; the last is the
+runs each, counted from 0 just before it, and K3's launches by form on the
+`mixed` card leg; largest error against the plain version; main-path
+times; the bound, the least time the card could take for the same work),
+then the card's name and power limit; the last is the
 ``ok`` line.  Exits 1 when there is no CUDA device.  Needs one card, no
 network.
 """
@@ -202,6 +234,18 @@ STRAIN_LEGS_12 = (("gpu_t4", [], POOL_THREADS),
 #: samples, if the smoke nears its limit
 STRAINS_12_KBP = 1000
 STRAINS_12_SAMPLES = 12
+#: the `modes` phase: the long-read BAM's coverage beside the short reads,
+#: and the `knobs` legs' flag sets (None: the planted truth's VCF)
+LONG_COVERAGE = 10.0
+KNOB_LEGS = (
+    ("pcr_indel_none", ["--pcr-indel-model", "none"]),
+    ("gap_continuation_20", ["--pair-hmm-gap-continuation-penalty", "20"]),
+    ("mismapping_30_asymmetric",
+     ["--phred-scaled-global-read-mismapping-rate", "30",
+      "--disable-symmetric-hmm-normalizing"]),
+    ("adaptive_pruning", ["--use-adaptive-pruning"]),
+    ("features_vcf", ["--features-vcf", None]))
+ENTRY_TOL = 1e-4         # entry()'s fn on the card vs on the host, f32 both
 
 
 def emit(phase: str, **fields):
@@ -820,12 +864,26 @@ def read_sites(vcf, tags=()):
     return sites
 
 
+def same_sites(label, vcf, ref_vcf, tags=()) -> tuple:
+    """(the sites of ``vcf``, the largest |QUAL| difference) once ``vcf``
+    is checked to call the sites, alleles and genotypes (and the INFO
+    values of ``tags``) of ``ref_vcf``, QUAL within QUAL_TOL."""
+    got, want = read_sites(vcf, tags), read_sites(ref_vcf, tags)
+    check([k for k, _ in got] == [k for k, _ in want],
+          f"{label}: sites, alleles, genotypes or {list(tags)} differ")
+    dq = max((abs(a - b) for (_, a), (_, b) in zip(got, want)), default=0.0)
+    check(dq <= QUAL_TOL, f"{label}: QUAL differs by {dq} > {QUAL_TOL}")
+    return got, dq
+
+
 def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
              mode="call", cards=None):
-    """One run of ``mode`` (`call` or `genotype`) through the CLI at -t
-    ``threads``, under the environment variables of ``env`` (None: unset),
-    with ``cards`` (default: the first card) in the place of the visible
-    cards that --devices auto takes; returns its counters.  The counting
+    """One run of ``mode`` (`call`, `genotype` or `consensus`) through the
+    CLI at -t ``threads``, under the environment variables of ``env``
+    (None: unset), with ``cards`` (default: the first card) in the place of
+    the visible cards that --devices auto takes; returns its counters.  The
+    parent's K2 batches are seen where they are enqueued, so a batch a
+    worker packed counts too (``batch_longest``).  The counting
     wrappers below see the work of this process only: at -t above 1 the
     workers' counters come back through the pool, and the parent's service
     moves LAUNCHES, CARD_LAUNCHES, SW_LAUNCHES and SW_COUNTS."""
@@ -847,9 +905,17 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
     sw_work = {"batches": 0, "device_batches": 0}
     sw_largest = {"device": 0, "pairs": None}
     activity = {"spans": 0, "positions": -1, "span": None}
+    batch_longest = []
     compute = engine.compute_works_likelihoods
     align_batch = sc.align_batch_cuda
     smooth = pipeline.smoothed_activity_device
+    enqueue = pc.enqueue_grouped_jobs
+
+    def enqueue_seen(arrays, *args, **kwargs):
+        # every K2 batch of the parent, its own or served to a worker
+        batch_longest.append([int(arrays["read_lens"].max()),
+                              int(arrays["hap_lens"].max())])
+        return enqueue(arrays, *args, **kwargs)
 
     def activity_counted(*args, **kwargs):
         activity["spans"] += 1
@@ -881,6 +947,7 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
     visible_cards = sharding.visible_cards
     engine.compute_works_likelihoods = counted
     sc.align_batch_cuda = sw_counted
+    pc.enqueue_grouped_jobs = enqueue_seen
     pipeline.smoothed_activity_device = activity_counted
     sharding.visible_cards = lambda: cards
     env = dict(env or {})
@@ -899,6 +966,7 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
     pc.LAUNCHES = 0
     pc.CARD_LAUNCHES.clear()
     sc.SW_LAUNCHES = 0
+    sc.SW_FORM_LAUNCHES.update(warp=0, cta=0)
     sc.SW_COUNTS.update(device=0, shortcut=0, scalar_long=0)
     buf = io.StringIO()
     t0 = time.perf_counter()
@@ -909,6 +977,7 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
     finally:
         engine.compute_works_likelihoods = compute
         sc.align_batch_cuda = align_batch
+        pc.enqueue_grouped_jobs = enqueue
         pipeline.smoothed_activity_device = smooth
         sharding.visible_cards = visible_cards
         for key, old in saved_env.items():
@@ -921,6 +990,7 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
     card_launches = dict(pc.CARD_LAUNCHES)
     devices = [str(d) for d in sharding.get_devices()]
     sw_launches = sc.SW_LAUNCHES
+    sw_forms = dict(sc.SW_FORM_LAUNCHES)
     stages = dict(progress.GLOBAL_STAGES)
     progress.GLOBAL_STAGES = None
     check(rc == 0, f"{label}: cli exit code {rc}")
@@ -939,7 +1009,9 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
            "escalated": esc["escalated"], "checked": esc["checked"],
            "escalation_share": (esc["escalated"] / esc["checked"]
                                 if esc["checked"] else 0.0),
+           "batch_longest": batch_longest,
            "sw_counts": dict(sc.SW_COUNTS), "sw_launches": sw_launches,
+           "sw_form_launches": sw_forms,
            "sw_batches": sw_work["batches"],
            "sw_device_batches": sw_work["device_batches"],
            "spans": work["batches"], "activity_spans": activity["spans"],
@@ -948,6 +1020,7 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
            "workers": sorted(pool.WORKER_REPORTS.values(),
                              key=lambda r: r["wid"]),
            "env": env, "vcf": out["vcf"], "files": output_files(out),
+           "consensus": out.get("consensus", []),
            "timings": out.get("timings", {}),
            "n_variant_groups": out.get("n_variant_groups"),
            "n_strains": out.get("n_strains")}
@@ -1010,33 +1083,27 @@ def call_phase(root):
                 open(legs[card_sw]["vcf"], "rb") as b:
             check(a.read() == b.read(), f"the {card_sw} VCF is not "
                   f"byte-identical to the {plain_sw} one")
-    sg, sf = read_sites(legs["gpu"]["vcf"]), read_sites(legs["f64"]["vcf"])
-    check([k for k, _ in sg] == [k for k, _ in sf],
-          "gpu and f64 legs call different sites/alleles/genotypes")
-    dq = max((abs(a - b) for (_, a), (_, b) in zip(sg, sf)), default=0.0)
-    check(dq <= QUAL_TOL, f"QUAL differs by {dq} > {QUAL_TOL}")
+    sg, dq = same_sites("gpu leg against the f64 leg", legs["gpu"]["vcf"],
+                        legs["f64"]["vcf"])
     gpu = legs["gpu"]
     check(gpu["recall"] >= MIN_RECALL, f"recall {gpu['recall']}")
-    sa = read_sites(legs["gpu_act"]["vcf"])
-    check([k for k, _ in sa] == [k for k, _ in sg], "the device-activity "
-          "leg and the default card leg call different sites/alleles/"
-          "genotypes")
-    dq_act = max((abs(a - b) for (_, a), (_, b) in zip(sa, sg)), default=0.0)
-    check(dq_act <= QUAL_TOL, f"device-activity leg: QUAL differs by "
-          f"{dq_act} > {QUAL_TOL}")
+    _, dq_act = same_sites("device-activity leg against the default card "
+                           "leg", legs["gpu_act"]["vcf"], legs["gpu"]["vcf"])
     emit("compare", sites=len(sg), max_qual_diff=dq, recall=gpu["recall"],
          max_qual_diff_device_activity=dq_act,
          vcfs_identical=[list(p) for p in SAME_VCF],
          **{f"{k}_wall_s": leg["wall_s"] for k, leg in legs.items()},
          **{f"{k}_pairhmm_s": leg["pairhmm_s"] for k, leg in legs.items()})
-    return legs, batch, sw_batch, span, (fasta, bams, sg)
+    return legs, batch, sw_batch, span, (fasta, bams, sg), truth
 
 
 def output_files(out: dict) -> dict:
     """{file name: path} of every file a genome's run wrote: the VCF, the
-    ANI tables and, in genotype mode, the strain coverages and FASTAs."""
+    ANI tables, in genotype mode the strain coverages and FASTAs, and in
+    consensus mode the consensus FASTAs."""
     paths = [out["vcf"], *out.get("ani", {}).values(),
-             out.get("strain_coverages"), *out.get("strain_fastas", [])]
+             out.get("strain_coverages"), *out.get("strain_fastas", []),
+             *out.get("consensus", [])]
     return {os.path.basename(p): p for p in paths if p}
 
 
@@ -1226,13 +1293,8 @@ def devices_phase(root, fasta, bams, legs) -> dict:
                            {"LORIKEET_DEVICE_ACTIVITY": None, **env},
                            threads=threads, cards=cards if on_two else None)
         diff = same_files(ref["files"], leg["files"])
-        sites, ref_sites = read_sites(leg["vcf"]), read_sites(ref["vcf"])
-        check([k for k, _ in sites] == [k for k, _ in ref_sites],
-              f"{label}: sites/alleles/genotypes differ from the {base} "
-              "leg's")
-        dq = max((abs(a - b) for (_, a), (_, b) in zip(sites, ref_sites)),
-                 default=0.0)
-        check(dq <= QUAL_TOL, f"{label}: QUAL differs by {dq} > {QUAL_TOL}")
+        _, dq = same_sites(f"{label} against the {base} leg", leg["vcf"],
+                           ref["vcf"])
         check(not identical or not diff,
               f"{label}: {diff} differ from the {base} leg's")
         dispatch = leg["dispatch"]
@@ -1342,16 +1404,12 @@ def strain_dataset_phase(root, name, build, legs) -> dict:
               f"{name} {label}: scikit-learn was imported")
         dispatch = leg["dispatch"]
         if "--force-cpu" in flags:
-            check(leg["launches"] == 0 and dispatch["device"] == 0,
-                  f"{name} {label}: the pair-HMM ran on the device")
+            check_f64_leg(leg)
         else:
             # at -t 4 the pool serves the spans: the earlier phases' pools
             # are alive, so a genome under the pool's size gate rides one
             # (processing._pool_worthwhile)
-            check(leg["launches"] > 0 and dispatch["host"] == 0
-                  and (dispatch["remote"] > 0) == (threads > 1),
-                  f"{name} {label}: K2 launches {leg['launches']}, "
-                  f"dispatch {dispatch}")
+            check_card_leg(leg)
         check(spent["hdbscan"][0] == 1
               and spent["umap_embed"][0] == (len(bams) > 8),
               f"{name} {label}: clustering calls {spent}")
@@ -1376,12 +1434,8 @@ def strain_dataset_phase(root, name, build, legs) -> dict:
     if "gpu" in out and "gpu_t4" in out:
         diff = same_files(out["gpu"]["files"], out["gpu_t4"]["files"])
         check(not diff, f"{name}: -t 4 files {diff} differ from -t 1's")
-    sc = read_sites(card["vcf"], ("VG", "ST"))
-    sf = read_sites(f64["vcf"], ("VG", "ST"))
-    check([k for k, _ in sc] == [k for k, _ in sf], f"{name}: card and f64 "
-          "legs differ in sites, alleles, GT, VG or ST")
-    dq = max((abs(a - b) for (_, a), (_, b) in zip(sc, sf)), default=0.0)
-    check(dq <= QUAL_TOL, f"{name}: QUAL differs by {dq} > {QUAL_TOL}")
+    sc, dq = same_sites(f"{name}: card against f64", card["vcf"],
+                        f64["vcf"], ("VG", "ST"))
     timing = clustering_seconds(card["vcf"])
     emit("strains_compare", dataset=name, sites=len(sc), max_qual_diff=dq,
          t4_files_identical=True if "gpu_t4" in out and "gpu" in out
@@ -1412,6 +1466,404 @@ def strains_phase(root) -> dict:
     emit("strains_done", seconds=time.perf_counter() - t0)
     return {"strains_2": two, "strains_linked": linked,
             "strains_12": twelve}
+
+
+def check_card_leg(leg):
+    """A card leg ran every pair batch on the card: K2 launched, no batch
+    on a host, and at -t above 1 every batch served to a worker."""
+    dispatch = leg["dispatch"]
+    check(leg["launches"] > 0 and dispatch["host"] == 0
+          and (dispatch["remote"] > 0) == (leg["threads"] > 1),
+          f"{leg['leg']}: K2 launches {leg['launches']}, dispatch "
+          f"{dispatch}")
+
+
+def check_f64_leg(leg):
+    check(leg["launches"] == 0 and leg["dispatch"]["device"] == 0
+          and leg["dispatch"]["remote"] == 0,
+          f"{leg['leg']}: the pair-HMM ran on the device")
+
+
+def leg_recall(leg, truth) -> float:
+    from lorikeet_tpu_torch.io.vcf import read_vcf
+    from lorikeet_tpu_torch.testkit.dataset import recall
+    calls, _, _ = read_vcf(leg["vcf"])
+    return recall(calls, truth)
+
+
+def mixed_leg(root, fasta, bams, truth, dev) -> dict:
+    """`call -b S -l L`: the genome's short reads with a long-read BAM of
+    the same variants (see the module docstring)."""
+    from lorikeet_tpu_torch.ops.smith_waterman import (
+        ALIGNMENT_TO_BEST_HAPLOTYPE_SW_PARAMETERS, OverhangStrategy,
+    )
+    from lorikeet_tpu_torch.testkit.longreads import add_long_read_bam
+    t0 = time.perf_counter()
+    long_bam, n_long = add_long_read_bam(
+        fasta, truth, os.path.join(root, "long0.bam"), LONG_COVERAGE, seed=0)
+    simulate_s = time.perf_counter() - t0
+    extra = ["-l", long_bam]
+    card, *_ = call_leg("mixed_gpu_sw_t4", fasta, bams,
+                        os.path.join(root, "mixed_gpu_sw_t4"),
+                        ["--pallas-sw", *extra], threads=POOL_THREADS)
+    f64, *_ = call_leg("mixed_f64_t4", fasta, bams,
+                       os.path.join(root, "mixed_f64_t4"),
+                       ["--force-cpu", *extra], threads=POOL_THREADS)
+    t1, largest, sw_largest, _ = call_leg(
+        "mixed_gpu_sw", fasta, bams, os.path.join(root, "mixed_gpu_sw"),
+        ["--pallas-sw", *extra])
+    sites, dq = same_sites("mixed", card["vcf"], f64["vcf"])
+    rec = leg_recall(card, truth)
+    check(rec >= MIN_RECALL, f"mixed: recall {rec}")
+    for leg in (card, t1):
+        check_card_leg(leg)
+        check(leg["sw_launches"] > 0 and leg["sw_counts"]["device"] > 0
+              and sum(leg["sw_form_launches"].values())
+              == leg["sw_launches"],
+              f"{leg['leg']}: SW launches {leg['sw_launches']}, forms "
+              f"{leg['sw_form_launches']}, routes {leg['sw_counts']}")
+    check_f64_leg(f64)
+    diff = same_files(t1["files"], card["files"])
+    check(not diff, f"mixed: -t 4 files {diff} differ from -t 1's")
+    # the -t 1 card leg's largest batches, replayed: K2 against its plain
+    # version with the packer timed, K3 against its plain version and the
+    # native aligner
+    kernel = kernel_phase("mixed_reads", largest, dev, timed=True)
+    sw = sw_phase("mixed_reads", sw_largest,
+                  ALIGNMENT_TO_BEST_HAPLOTYPE_SW_PARAMETERS,
+                  OverhangStrategy.SOFTCLIP, dev, timed=False,
+                  phase="sw_main_path")
+    emit("modes", leg="mixed", long_reads=n_long, long_coverage=LONG_COVERAGE,
+         simulate_s=simulate_s, sites=len(sites), max_qual_diff=dq, recall=rec,
+         wall_s=card["wall_s"], f64_wall_s=f64["wall_s"],
+         t1_wall_s=t1["wall_s"], launches=card["launches"],
+         dispatch=card["dispatch"], sw_launches=card["sw_launches"],
+         sw_form_launches=card["sw_form_launches"],
+         t1_sw_form_launches=t1["sw_form_launches"],
+         sw_counts=card["sw_counts"], span_reruns=card["span_reruns"],
+         batch_longest=card["batch_longest"],
+         escalation_share=card["escalation_share"],
+         t1_escalation_share=t1["escalation_share"],
+         pack_ms=kernel["pack_ms"], largest_batch_pairs=kernel["pairs"],
+         largest_batch_rpad=kernel["rpad"],
+         longest_sw_alt=max(len(a) for _, a in sw_largest),
+         t4_files_identical_to_t1=sorted(card["files"]),
+         stages_s=card["stages_s"])
+    return {"long_bam": long_bam, "card": card, "f64": f64, "kernel": kernel,
+            "sw": sw}
+
+
+def consensus_leg(root, fasta, bams, truth, extra) -> dict:
+    """`consensus` on the card and on the f64 host, -t 4, short and long
+    reads: the consensus FASTAs byte-identical, the VCFs as `mixed`'s."""
+    card, *_ = call_leg("consensus_gpu_t4", fasta, bams,
+                        os.path.join(root, "consensus_gpu_t4"), extra,
+                        threads=POOL_THREADS, mode="consensus")
+    f64, *_ = call_leg("consensus_f64_t4", fasta, bams,
+                       os.path.join(root, "consensus_f64_t4"),
+                       ["--force-cpu", *extra], threads=POOL_THREADS,
+                       mode="consensus")
+    fastas = {n: p for n, p in card["files"].items()
+              if p in card["consensus"]}
+    f64_fastas = {n: p for n, p in f64["files"].items()
+                  if p in f64["consensus"]}
+    check(len(fastas) == len(bams) + 1,
+          f"consensus: FASTAs {sorted(fastas)}")
+    diff = same_files(fastas, f64_fastas)
+    check(not diff, f"consensus: FASTAs {diff} differ between card and f64")
+    sites, dq = same_sites("consensus", card["vcf"], f64["vcf"])
+    rec = leg_recall(card, truth)
+    check(rec >= MIN_RECALL, f"consensus: recall {rec}")
+    check_card_leg(card)
+    check_f64_leg(f64)
+    emit("modes", leg="consensus", fastas=sorted(fastas), sites=len(sites),
+         max_qual_diff=dq, recall=rec, wall_s=card["wall_s"],
+         f64_wall_s=f64["wall_s"], launches=card["launches"],
+         dispatch=card["dispatch"], consensus_s=card["timings"].get(
+             "consensus"))
+    return {"card": card, "f64": f64}
+
+
+def summarise_leg(root, vcfs) -> dict:
+    """`summarise` on the card leg's VCF, then on the f64 leg's: each
+    exits 0 and writes its tables; the files that differ are reported."""
+    from lorikeet_tpu_torch import cli
+    written = {}
+    for label, vcf in vcfs.items():
+        outdir = os.path.join(root, f"summarise_{label}")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["summarise", "-i", vcf, "-o", outdir])
+        check(rc == 0, f"summarise {label}: exit {rc}")
+        files = {n: os.path.join(d, n) for d, _, names in os.walk(outdir)
+                 for n in names}
+        check(len(files) >= 3 and all(os.path.getsize(p) for p in
+                                      files.values()),
+              f"summarise {label}: wrote {sorted(files)}")
+        written[label] = (files, time.perf_counter() - t0)
+    (card, card_s), (f64, f64_s) = written.values()
+    out = {"files": sorted(card), "files_differing": same_files(card, f64),
+           "seconds": card_s, "f64_seconds": f64_s}
+    emit("modes", leg="summarise", **out)
+    return out
+
+
+#: one process of a chunk-shard run: the CLI, then its counters as JSON
+SHARD_PROCESS = """
+import contextlib, io, json, sys
+from lorikeet_tpu_torch import cli
+from lorikeet_tpu_torch.calling import likelihoods as lk
+from lorikeet_tpu_torch.ops import pairhmm_cuda as pc
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    rc = cli.main(json.loads(sys.argv[1]))
+(out,) = json.loads(buf.getvalue().strip().splitlines()[-1])[
+    "outputs"]["genomes"].values()
+print(json.dumps({"rc": rc, "out": out, "launches": pc.LAUNCHES,
+                  "dispatch": dict(lk.DISPATCH_COUNTS),
+                  "foreign": sorted(m for m in sys.modules if m.split(".")[0]
+                                    in ("jax", "jaxlib", "lorikeet_tpu"))}))
+"""
+
+
+def chunk_shard_run(root, label, fasta, bams, flags) -> tuple:
+    """`call -t 1` in two processes started together
+    (LORIKEET_PROCESS_INDEX 0 and 1 of LORIKEET_PROCESS_COUNT 2) into one
+    output directory: ([gatherer's report, worker's report], wall)."""
+    import subprocess
+    argv = ["call", "-t", "1", "-r", fasta, "-b", *bams, "-o",
+            os.path.join(root, label), *flags]
+    procs = []
+    t0 = time.perf_counter()
+    for index in (0, 1):
+        env = dict(os.environ, LORIKEET_PROCESS_INDEX=str(index),
+                   LORIKEET_PROCESS_COUNT="2")
+        env.pop("LORIKEET_DEVICE_ACTIVITY", None)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", SHARD_PROCESS, json.dumps(argv)],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for index, (p, (_, err)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"{label} process {index}: exit "
+              f"{p.returncode}: {err[-2000:]}")
+    reports = [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
+    gatherer, worker = reports
+    check(gatherer["out"].get("vcf") and worker["out"].get("vcf") is None
+          and worker["out"].get("role") == "worker"
+          and not gatherer["foreign"] and not worker["foreign"],
+          f"{label}: gatherer {gatherer['out']}, worker {worker['out']}, "
+          f"foreign modules {gatherer['foreign']} {worker['foreign']}")
+    return reports, wall
+
+
+def chunk_shard_leg(root, fasta, bams, legs) -> dict:
+    """Two `call -t 1` processes on the one card (two CUDA contexts on
+    cuda:0), then two on the f64 host; the gatherers' VCFs held against
+    each other, and against the one-process -t 1 legs (reported)."""
+    card, card_wall = chunk_shard_run(root, "shard_gpu", fasta, bams, [])
+    f64, f64_wall = chunk_shard_run(root, "shard_f64", fasta, bams,
+                                    ["--force-cpu"])
+    for index, rep in enumerate(card):
+        check(rep["launches"] > 0 and rep["dispatch"]["host"] == 0,
+              f"chunk_shard card process {index}: K2 launches "
+              f"{rep['launches']}, dispatch {rep['dispatch']}")
+    for index, rep in enumerate(f64):
+        check(rep["launches"] == 0 and rep["dispatch"]["device"] == 0,
+              f"chunk_shard f64 process {index}: the pair-HMM ran on the "
+              "device")
+    sites, dq = same_sites("chunk_shard", card[0]["out"]["vcf"],
+                           f64[0]["out"]["vcf"])
+    out = {"sites": len(sites), "max_qual_diff": dq, "wall_s": card_wall,
+           "f64_wall_s": f64_wall,
+           "launches": [rep["launches"] for rep in card],
+           "dispatch": [rep["dispatch"] for rep in card],
+           "units": card[1]["out"].get("units"),
+           "files_differing": same_files(
+               legs["gpu"]["files"], output_files(card[0]["out"])),
+           "f64_files_differing": same_files(
+               legs["f64"]["files"], output_files(f64[0]["out"]))}
+    emit("modes", leg="chunk_shard", **out)
+    return out
+
+
+def knobs_leg(root, fasta, bams, truth_vcf, legs) -> dict:
+    """One card and one f64 -t 4 leg per flag set of KNOB_LEGS: the same
+    sites with QUAL within 0.1, every pair batch on the card."""
+    out = {}
+    for name, flags in KNOB_LEGS:
+        flags = [truth_vcf if f is None else f for f in flags]
+        card, *_ = call_leg(f"knob_{name}_gpu_t4", fasta, bams,
+                            os.path.join(root, f"knob_{name}_gpu_t4"), flags,
+                            threads=POOL_THREADS)
+        f64, *_ = call_leg(f"knob_{name}_f64_t4", fasta, bams,
+                           os.path.join(root, f"knob_{name}_f64_t4"),
+                           ["--force-cpu", *flags], threads=POOL_THREADS)
+        sites, dq = same_sites(f"knob {name}", card["vcf"], f64["vcf"])
+        check_card_leg(card)
+        check_f64_leg(f64)
+        out[name] = {"flags": flags, "sites": len(sites), "max_qual_diff": dq,
+                     "wall_s": card["wall_s"], "f64_wall_s": f64["wall_s"],
+                     "launches": card["launches"],
+                     "dispatch": card["dispatch"],
+                     "escalation_share": card["escalation_share"],
+                     "vcf_moved_from_default": os.path.basename(
+                         card["vcf"]) in same_files(legs["gpu"]["files"],
+                                                    card["files"])}
+        emit("modes", leg="knobs", knob=name, **out[name])
+    return out
+
+
+def modes_phase(root, fasta, bams, truth, legs, dev) -> dict:
+    """The CLI's other modes on the `call` phase's genome (see the module
+    docstring): mixed, consensus, summarise, chunk_shard, knobs."""
+    from lorikeet_tpu_torch.testkit.dataset import write_truth_vcf
+    t0 = time.perf_counter()
+    mixed = mixed_leg(root, fasta, bams, truth, dev)
+    consensus_leg(root, fasta, bams, truth, ["-l", mixed["long_bam"]])
+    summarise_leg(root, {"gpu": mixed["card"]["vcf"],
+                         "f64": mixed["f64"]["vcf"]})
+    chunk_shard_leg(root, fasta, bams, legs)
+    knobs_leg(root, fasta, bams, write_truth_vcf(
+        os.path.join(root, "truth.vcf"), fasta, truth), legs)
+    emit("modes_done", seconds=time.perf_counter() - t0)
+    return mixed
+
+
+def nccl_phase(pairs, span, dev) -> dict:
+    """`initialize_distributed` at world size 1 on the card (an NCCL group:
+    NCCL puts no two ranks on one card), a collective of each kind on it,
+    then PR 3's group forms under it against their results without a
+    group: pairhmm_forward_sharded on the main-path batch (as the flat
+    kernel alone, KERNEL_TOL), region_batch_step (lk after the escalation
+    within EXACT_TOL, depth totals within 1e-2) and
+    sharded_smoothed_activity on the `activity` span (ACTIVITY_SPLIT_TOL).
+    The group is destroyed before the phase ends."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from lorikeet_tpu_torch.ops import pairhmm_cuda as pc
+    from lorikeet_tpu_torch.ops.pairhmm import (
+        pack_pairhmm_batch, pairhmm_forward_checked,
+    )
+    from lorikeet_tpu_torch.parallel.hosts import initialize_distributed
+    from lorikeet_tpu_torch.parallel.pipeline import (
+        sharded_smoothed_activity, smoothed_activity_device,
+    )
+    from lorikeet_tpu_torch.parallel.sharding import region_batch_step
+
+    a = pack_pairhmm_batch(pairs)
+    flat = [a[k] for k in ("haps", "hap_lens", "reads", "read_lens", "quals",
+                           "ins_quals", "del_quals", "gcps")]
+    rng = np.random.default_rng(1)
+    sample_ids = rng.integers(0, 8, len(pairs)).astype(np.int32)
+    depths = rng.random((len(pairs), 64), np.float32)
+    (gls, hq, ploidy, het, het_std, conf), kwargs = span
+    act_kw = dict(snp_heterozygosity=het, heterozygosity_stdev=het_std,
+                  stand_min_conf=conf,
+                  max_prob_propagation=kwargs["max_prob_propagation"])
+    # the results without a group are for comparison: their flat launches
+    # are not the path's
+    launches = pc.FLAT_LAUNCHES
+    alone = {"lk": pc.pairhmm_forward_flat(*flat, device=dev),
+             "step": region_batch_step(None, device=dev)(
+                 *flat, sample_ids, depths),
+             "act": smoothed_activity_device(gls, hq, ploidy, devices=dev,
+                                             **act_kw)}
+    pc.FLAT_LAUNCHES = launches
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coordinator = f"127.0.0.1:{s.getsockname()[1]}"
+    t0 = time.perf_counter()
+    context = initialize_distributed(coordinator, 1, 0)
+    init_s = time.perf_counter() - t0
+    try:
+        check(dist.get_backend() == "nccl" and context == (0, 1),
+              f"nccl: backend {dist.get_backend()}, context {context}")
+        x = torch.arange(8, dtype=torch.float32, device=dev)
+        dist.all_reduce(x)
+        parts = [torch.empty_like(x)]
+        dist.all_gather(parts, x)
+        dist.barrier()
+        check(torch.equal(parts[0].cpu(), torch.arange(8.0)),
+              "nccl: all_reduce / all_gather at world size 1 changed data")
+        t0 = time.perf_counter()
+        launches = pc.FLAT_LAUNCHES
+        lk = pc.pairhmm_forward_sharded(*flat, device=dev)
+        step_lk, step_total = region_batch_step(None, device=dev)(
+            *flat, sample_ids, depths)
+        act = sharded_smoothed_activity(gls, hq, ploidy, device=dev,
+                                        **act_kw)
+        torch.cuda.synchronize()
+        forms_s = time.perf_counter() - t0
+        launches = pc.FLAT_LAUNCHES - launches
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "nccl: the group outlived the phase")
+    err_lk = float(np.abs(lk - alone["lk"]).max())
+    check(err_lk <= KERNEL_TOL, f"nccl: pairhmm_forward_sharded vs flat "
+          f"{err_lk}")
+    err_step = float(np.abs(pairhmm_forward_checked(step_lk, pairs)
+                            - pairhmm_forward_checked(alone["step"][0],
+                                                      pairs)).max())
+    err_total = float(np.abs(step_total - alone["step"][1]).max())
+    check(err_step <= EXACT_TOL and err_total <= 1e-2,
+          f"nccl: region_batch_step lk {err_step}, totals {err_total}")
+    err_act = float(np.abs(act - alone["act"]).max())
+    check(act.shape == alone["act"].shape
+          and err_act <= ACTIVITY_SPLIT_TOL,
+          f"nccl: sharded_smoothed_activity vs one card {err_act}")
+    out = {"backend": "nccl", "world_size": 1, "coordinator": coordinator,
+           "init_s": init_s, "forms_s": forms_s, "flat_launches": launches,
+           "pairs": len(pairs),
+           "positions": int(gls.shape[1]),
+           "max_abs_err_sharded_pairhmm": err_lk,
+           "max_abs_err_region_batch": err_step,
+           "max_abs_err_region_batch_total": err_total,
+           "max_abs_err_activity": err_act}
+    emit("modes", leg="nccl", **out)
+    return out
+
+
+def entry_phase(dev) -> dict:
+    """entry()'s fn (the batched pair-HMM wavefront, K5, torch ops) on the
+    card against the same example on the host, timed with CUDA events."""
+    import numpy as np
+
+    from lorikeet_tpu_torch.entry import entry
+    fn, args = entry()
+    got = fn(*args)
+    plain_fn, plain_args = entry(device="cpu")
+    plain = plain_fn(*plain_args)
+    check(got.device.type == "cuda" and got.shape == plain.shape == (32,),
+          f"entry: {got.device}, shapes {got.shape}, {plain.shape}")
+    got = got.cpu().numpy()
+    err = float(np.abs(got - plain.numpy()).max())
+    check(np.all(np.isfinite(got)) and np.all(got < 0)
+          and err <= ENTRY_TOL, f"entry: card vs host {err}")
+    ms = cuda_median_ms(lambda: fn(*args))
+    t0 = time.perf_counter()
+    plain_fn(*plain_args)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    B, R = args[2].shape
+    H = args[0].shape[1]
+    cells = B * R * H
+    out = {"batch": [B, R, H], "max_abs_err_vs_host": err, "ms": ms,
+           "host_ms": plain_ms, "steps": R + H,
+           **bound(PAIRHMM_OPS_PER_CELL * cells, PEAK_F32_OPS_S,
+                   sum(x.nbytes for x in args) + 4 * B)}
+    emit("modes", leg="entry", **out)
+    return out
 
 
 def sw_main_path_phase(pairs, dev) -> dict:
@@ -1509,12 +1961,13 @@ def main() -> int:
     from lorikeet_tpu_torch.ops import pairhmm_cuda as pc
     from lorikeet_tpu_torch.parallel import pool
     with tempfile.TemporaryDirectory() as root:
-        legs, batch, sw_batch, span, dataset = call_phase(root)
+        legs, batch, sw_batch, span, dataset, truth = call_phase(root)
         gpu, gpu_sw = legs["gpu"], legs["gpu_sw"]
         pool_phase(root, *dataset[:2], legs)
         genotype_phase(root, *dataset[:2])
         devices_phase(root, *dataset[:2], legs)
         strains_phase(root)
+        mixed = modes_phase(root, *dataset[:2], truth, legs, dev)
         # the main path's largest batches, replayed after the counted run:
         # each kernel at the shapes the main path gives it
         main_batch = kernel_phase("main_path", batch, dev, timed=True)
@@ -1525,6 +1978,7 @@ def main() -> int:
         pc.FLAT_LAUNCHES = 0
         region_batch_phase(batch, dev)
         activity_phase(span, dev)
+        nccl_phase(batch, span, dev)
         dryrun_phase(dev)
         flat_launches = pc.FLAT_LAUNCHES
         check(flat_launches > 0, "the flat kernel's path launched no kernel")
@@ -1532,9 +1986,10 @@ def main() -> int:
             trace_phase(root, *dataset, label)
         trace_phase(root, *dataset, "gpu", threads=POOL_THREADS)
         pool.shutdown_pool()
-    checks.append(main_batch)
+    entry_phase(dev)
+    checks += [main_batch, mixed["kernel"]]
     flat_checks.append(flat_main)
-    sw_checks.append(sw_main)
+    sw_checks += [sw_main, mixed["sw"]]
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "lorikeet_tpu", "bench_e2e"))
@@ -1560,6 +2015,7 @@ def main() -> int:
         "source": "lorikeet_tpu_torch/csrc/sw.cu",
         "replaces": "lorikeet_tpu/ops/sw_pallas.py:59",
         "launches": gpu_sw["sw_launches"],
+        "mixed_leg_form_launches": mixed["card"]["sw_form_launches"],
         # exact: 0.0 when every (CIGAR, offset) matched, as checked above
         "max_abs_err": float(max(c.get("mismatches", 0) for c in sw_checks)),
         **times(sw_main)}, {

@@ -374,17 +374,11 @@ def compute_works_likelihoods(engine: "HaplotypeCallerEngine",
     compute half of call_regions_batched; ctypes/device execution releases
     the GIL, so running this on a worker thread overlaps with host region
     preparation of the next span)."""
-    import time as _time
-
     from lorikeet_tpu_torch.calling.likelihoods import compute_pair_likelihoods
     from lorikeet_tpu_torch.utils import progress as _prog
     all_pairs = [p for w in works for p in w.pairs]
-    t0 = _time.perf_counter()
-    out = compute_pair_likelihoods(all_pairs, engine.cfg.use_cuda)
-    acc = _prog.GLOBAL_STAGES
-    if acc is not None:
-        acc["pairhmm"] = acc.get("pairhmm", 0.0) + _time.perf_counter() - t0
-    return out
+    with _prog.global_stage("pairhmm"):
+        return compute_pair_likelihoods(all_pairs, engine.cfg.use_cuda)
 
 
 def call_regions_batched(engine: "HaplotypeCallerEngine",

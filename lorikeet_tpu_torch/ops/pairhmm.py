@@ -1,8 +1,9 @@
-"""Pair-HMM forward: the exact f64 host reference and the f32 escalation.
+"""Pair-HMM forward: the exact f64 host reference, the batched wavefront
+and the f32 escalation.
 
-The numpy parts of lorikeet_tpu/ops/pairhmm.py, which the JAX package keeps
-in a module that imports jax.  Numerics contract (per (read, haplotype)
-pair, the log10 total probability of the read arising from the haplotype):
+Counterpart of lorikeet_tpu/ops/pairhmm.py.  Numerics contract (per (read,
+haplotype) pair, the log10 total probability of the read arising from the
+haplotype):
 
   states M/I/D over (read_len+1) x (hap_len+1); free deletions on row 0
   (D[0,j] = K/hap_len); transition probs per read row i from phred quals:
@@ -13,6 +14,10 @@ pair, the log10 total probability of the read arising from the haplotype):
 
 The f32 device kernel (ops/pairhmm_cuda.py) reports rows it may have
 flushed; :func:`pairhmm_forward_checked` recomputes them here in f64.
+:func:`pairhmm_forward_batch` is the JAX package's ``lax.scan`` wavefront
+(renormalised by 1/peak on every diagonal) as plain torch ops; torch is
+imported inside it, so the numpy-only pool workers that import this module
+never load it.
 """
 from __future__ import annotations
 
@@ -84,6 +89,115 @@ def pairhmm_forward_np(
 
     final = np.sum(M[R, 1:]) + np.sum(I[R, 1:])
     return float(np.log10(final) - _INITIAL_CONDITION_LOG10)
+
+
+def pairhmm_forward_batch(
+    haps,       # [B, Hmax] uint8 bases (pad value arbitrary != 'N')
+    hap_lens,   # [B] int32
+    reads,      # [B, Rmax] uint8 bases
+    read_lens,  # [B] int32
+    quals,      # [B, Rmax] uint8 phred base quals
+    ins_quals,  # [B, Rmax] uint8
+    del_quals,  # [B, Rmax] uint8
+    gcps,       # [B, Rmax] uint8
+    unroll: int = 1,
+    device=None,
+):
+    """Batched forward log10-likelihoods, a [B] float32 tensor on ``device``.
+
+    Wavefront over anti-diagonals d = i + j, one loop step each; the state
+    vectors are indexed by read position i (lanes 0..Rmax, lane 0 the
+    boundary row) and every diagonal is divided by its interior peak, as
+    the JAX package's ``_pairhmm_jit`` does.  Inputs are numpy arrays or
+    tensors.  ``device`` None means the inputs' device when ``haps`` is a
+    tensor, else the card (an error without one); ``"cpu"`` runs on the
+    host.  ``unroll`` is the JAX signature's scan unroll, which a Python
+    loop has no use for.
+    """
+    import torch
+
+    from lorikeet_tpu_torch.device import require_cuda
+
+    del unroll
+    if device is None:
+        device = haps.device if torch.is_tensor(haps) else require_cuda()
+    device = torch.device(device)
+
+    def tensor(x, dtype):
+        return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
+                               device=device).to(dtype)
+
+    u8, i32, f32 = torch.uint8, torch.int32, torch.float32
+    haps, reads = tensor(haps, u8), tensor(reads, u8)
+    hap_lens, read_lens = tensor(hap_lens, i32), tensor(read_lens, i32)
+    B, Rmax = reads.shape
+    Hmax = haps.shape[1]
+
+    def eps(q):
+        return torch.pow(10.0, tensor(q, f32) / -10.0)
+
+    def pad1(x):  # [B, Rmax] -> [B, Rmax + 1], lane 0 (boundary row) zero
+        return torch.nn.functional.pad(x, (1, 0))
+
+    e, eps_i, eps_d, eps_g = eps(quals), eps(ins_quals), eps(del_quals), \
+        eps(gcps)
+    t_mm = pad1(1.0 - torch.clamp(eps_i + eps_d, max=1.0))
+    t_im = pad1(1.0 - eps_g)
+    t_mi, t_ii, t_md = pad1(eps_i), pad1(eps_g), pad1(eps_d)
+    t_dd = t_ii
+    p_match = pad1(1.0 - e)
+    p_mis = pad1(e / TRISTATE_CORRECTION)
+    read_pad = pad1(reads)
+    read_n = read_pad == _NBASE
+
+    lane = torch.arange(Rmax + 1, device=device)
+    boundary = (lane == 0)[None, :]
+    is_end_row = lane[None, :] == read_lens[:, None]
+    b0 = (1.0 / hap_lens.to(f32))[:, None]
+
+    def shift(x):  # out[:, i] = x[:, i - 1], out[:, 0] = 0
+        return torch.nn.functional.pad(x[:, :-1], (1, 0))
+
+    zeros = torch.zeros((B, Rmax + 1), dtype=f32, device=device)
+    m1, i1, d1 = zeros, zeros, torch.where(boundary, b0, zeros)
+    m2, i2, d2 = zeros, zeros, zeros
+    hap_diag = torch.zeros((B, Rmax + 1), dtype=u8, device=device)
+    bval, acc = b0, zeros
+    log10_scale = torch.zeros(B, dtype=f32, device=device)
+    for d in range(1, Rmax + Hmax + 1):
+        # lane i holds hap[d - i - 1]; hap[d - 1] enters at lane 0 (clipped
+        # past Hmax: those cells are masked out of the sum)
+        hap_diag = torch.cat([haps[:, min(d - 1, Hmax - 1), None],
+                              hap_diag[:, :-1]], dim=1)
+        match = (read_pad == hap_diag) | read_n | (hap_diag == _NBASE)
+        prior = torch.where(match, p_match, p_mis)
+        m_new = prior * (shift(m2) * t_mm + (shift(i2) + shift(d2)) * t_im)
+        i_new = shift(m1) * t_mi + shift(i1) * t_ii
+        d_new = m1 * t_md + d1 * t_dd
+        # row 0: M = I = 0, D the boundary value
+        m_new = m_new.masked_fill(boundary, 0.0)
+        i_new = i_new.masked_fill(boundary, 0.0)
+        d_new = torch.where(boundary, bval, d_new)
+        # the last read row's M + I for j = d - read_len in [1, hap_len]
+        j_here = d - read_lens
+        valid = ((j_here >= 1) & (j_here <= hap_lens))[:, None] & is_end_row
+        acc = acc + torch.where(valid, m_new + i_new, zeros)
+        # divide the live state by the diagonal's interior peak (the
+        # boundary row left out; see the JAX package's _pairhmm_jit)
+        interior = torch.maximum(m_new, torch.maximum(
+            i_new, d_new.masked_fill(boundary, 0.0)))
+        peak = torch.maximum(interior.amax(dim=1, keepdim=True),
+                             acc.amax(dim=1, keepdim=True))
+        scale = torch.where(peak > 0, peak, torch.ones_like(peak))
+        inv = 1.0 / scale
+        m2, i2, d2 = m1 * inv, i1 * inv, d1 * inv
+        m1, i1, d1 = m_new * inv, i_new * inv, d_new * inv
+        acc = acc * inv
+        bval = bval * inv
+        log10_scale = log10_scale + torch.log10(scale[:, 0])
+    total = acc.sum(dim=1)
+    return torch.log10(torch.clamp(total, min=torch.finfo(f32).tiny)) \
+        + log10_scale
 
 
 # Below this log10 the f32 device kernel may have flushed deep DP cells

@@ -44,8 +44,10 @@ SW_DEVICE = "cuda"
 #: pairs of align_batch_cuda by route: the batched path (kernel, or plain
 #: version on the CPU), the exact-substring shortcut, refs over the cap
 SW_COUNTS = {"device": 0, "shortcut": 0, "scalar_long": 0}
-#: kernel launches made by sw_align in this process
+#: kernel launches made by sw_align in this process, and the same split by
+#: form (a warp per pair for alts up to WARP_MAX_ALT, a CTA per pair above)
 SW_LAUNCHES = 0
+SW_FORM_LAUNCHES = {"warp": 0, "cta": 0}
 
 #: bytes of kernel scratch per chunk (backtrack slabs); larger batches are
 #: split into several chunks
@@ -401,8 +403,9 @@ def sw_kernel_launch(t: dict, parameters: SWParameters,
     out = torch.empty(2 * B + t["cigar_len"], dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for lo, hi, (rows_max, alt_max) in ((0, n_warp, t["warp_max"]),
-                                            (n_warp, B, t["cta_max"])):
+        for form, lo, hi, (rows_max, alt_max) in (
+                ("warp", 0, n_warp, t["warp_max"]),
+                ("cta", n_warp, B, t["cta_max"])):
             if hi == lo:
                 continue
             # table rows lo.. (6 int64 each), the CIGAR codes behind the
@@ -419,6 +422,7 @@ def sw_kernel_launch(t: dict, parameters: SWParameters,
                     f"sw kernel launch failed: CUDA error {rc} (B={hi - lo}, "
                     f"rows={rows_max}, alt={alt_max})")
             SW_LAUNCHES += 1
+            SW_FORM_LAUNCHES[form] += 1
     return out
 
 

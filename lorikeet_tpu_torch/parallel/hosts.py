@@ -52,3 +52,32 @@ def even_shares(n_items: int, n: int) -> list:
     per, extra = divmod(n_items, n)
     cuts = [i * per + min(i, extra) for i in range(n + 1)]
     return list(zip(cuts[:-1], cuts[1:]))
+
+
+def initialize_distributed(coordinator: str = None, num_processes: int = None,
+                           process_id: int = None, device=None) -> tuple:
+    """Bring up the default ``torch.distributed`` process group when a
+    coordinator address (``host:port``) is supplied; a no-op otherwise.
+    Returns the (process_index, process_count) in effect.
+
+    The group is NCCL over the cards, the rank's card (``process_id``
+    modulo the visible cards) bound first, unless ``device="cpu"`` asks for
+    the host, which gets gloo.  Without a card and without that request it
+    is an error, never a silent gloo group."""
+    if coordinator:
+        import torch
+        import torch.distributed as dist
+        if num_processes is None or process_id is None:
+            raise ValueError("initialize_distributed: a coordinator needs "
+                             "num_processes and process_id (nothing on "
+                             "the machine names them)")
+        if device is not None and torch.device(device).type == "cpu":
+            backend = "gloo"
+        else:
+            from lorikeet_tpu_torch.device import require_cuda
+            require_cuda()
+            torch.cuda.set_device(process_id % torch.cuda.device_count())
+            backend = "nccl"
+        dist.init_process_group(backend, init_method="tcp://" + coordinator,
+                                world_size=num_processes, rank=process_id)
+    return distributed_context()

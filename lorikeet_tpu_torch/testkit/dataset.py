@@ -90,3 +90,21 @@ def recall(calls, truth) -> float:
             if any(p in called for p in range(t.pos - 25, t.pos)):
                 hit += 1
     return hit / max(len(truth), 1)
+
+
+def write_truth_vcf(path: str, fasta: str, truth) -> str:
+    """The planted variants of a single-contig dataset as a sites-only VCF
+    (``--features-vcf`` input); returns ``path``."""
+    from lorikeet_tpu_torch.io.fasta import FastaReader
+    reader = FastaReader(fasta)
+    (contig,) = reader.names
+    length = reader.length(contig)
+    reader.close()
+    with open(path, "w") as fh:
+        fh.write("##fileformat=VCFv4.2\n"
+                 f"##contig=<ID={contig},length={length}>\n"
+                 "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
+        for v in sorted(truth, key=lambda v: v.pos):
+            fh.write(f"{contig}\t{v.pos + 1}\t.\t{v.ref.decode()}\t"
+                     f"{v.alt.decode()}\t.\tPASS\t.\n")
+    return path

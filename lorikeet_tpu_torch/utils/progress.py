@@ -95,3 +95,19 @@ def maybe_profile(profile_dir: str | None):
 #: accumulate {stage: seconds} across _call_span / the pair-HMM dispatch
 #: (profile / smooth_extract / region_prep / pairhmm).
 GLOBAL_STAGES = None
+
+
+@contextlib.contextmanager
+def global_stage(name: str):
+    """Accumulate wall seconds into GLOBAL_STAGES[name] when enabled; the
+    per-stage split of the calling hot path (profile / smooth / prep /
+    pairhmm / genotype)."""
+    acc = GLOBAL_STAGES
+    if acc is None:
+        yield
+        return
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0

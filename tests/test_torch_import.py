@@ -10,6 +10,7 @@ ctypes and C++).  Each copy is held to its original here: the same code
 once the package's name is put back, comments and docstrings aside.
 """
 import ast
+import json
 import os
 import pkgutil
 import re
@@ -56,7 +57,9 @@ def test_every_port_module_imports_without_jax():
             "lorikeet_tpu_torch.parallel.pipeline",
             "lorikeet_tpu_torch.parallel.dryrun",
             "lorikeet_tpu_torch.native.graph_native",
-            "lorikeet_tpu_torch.testkit.dataset"} <= set(mods)
+            "lorikeet_tpu_torch.testkit.dataset",
+            "lorikeet_tpu_torch.entry",
+            "lorikeet_tpu_torch.testkit.longreads"} <= set(mods)
     res = _run("import importlib, sys\n"
                f"for m in {mods!r}: importlib.import_module(m)\n"
                + NO_JAX_PACKAGE + "print('ok')")
@@ -101,6 +104,64 @@ def test_cli_call_runs_without_jax(tmp_path):
                 if m.split(".")[0] in ("jax", "lorikeet_tpu", "bench_e2e")]
     assert open(tmp_path / "out2" / "ref" / "ref.vcf").read() \
         == open(vcf).read()
+
+
+MIXED_FIXTURE = """
+import os
+from lorikeet_tpu_torch.testkit.dataset import simulate_dataset
+from lorikeet_tpu_torch.testkit.longreads import add_long_read_bam
+fasta, bams, truth = simulate_dataset({tmp!r}, {kbp}, 2, 12.0, seed=2)
+long_bam, _ = add_long_read_bam(fasta, truth,
+                                os.path.join({tmp!r}, "long.bam"), 6.0,
+                                seed=2)
+print(fasta, long_bam, *bams)
+"""
+
+
+def test_cli_call_with_long_reads_runs_without_jax(tmp_path):
+    """`call -b S -l L` (short and long reads mixed), then the check."""
+    res = _run(MIXED_FIXTURE.format(tmp=str(tmp_path), kbp=8))
+    assert res.returncode == 0, res.stderr
+    fasta, long_bam, *bams = res.stdout.split()
+    args = ["call", "-t", "1", "--force-cpu", "-r", fasta, "-b", *bams,
+            "-l", long_bam, "-o", str(tmp_path / "out")]
+    res = _run("import sys\n"
+               "from lorikeet_tpu_torch.cli import main\n"
+               f"rc = main({args!r})\n"
+               + NO_JAX_PACKAGE + "sys.exit(rc)", cwd=str(tmp_path))
+    assert res.returncode == 0, res.stderr
+    header = [line for line in open(tmp_path / "out" / "genome" /
+                                    "genome.vcf") if line.startswith("#CHROM")]
+    assert len(header[0].split("\t")) == 9 + 3
+
+
+def test_chunk_shard_call_runs_without_jax(tmp_path):
+    """Two processes of a chunk-shard `call` (LORIKEET_PROCESS_INDEX 0
+    and 1 of 2) on a genome of two chunks; each checks its own modules
+    after the run."""
+    res = _run(MIXED_FIXTURE.format(tmp=str(tmp_path), kbp=90))
+    assert res.returncode == 0, res.stderr
+    fasta, long_bam, *bams = res.stdout.split()
+    args = ["call", "-t", "1", "--force-cpu", "-r", fasta, "-b", *bams,
+            "-l", long_bam, "-o", str(tmp_path / "out")]
+    code = ("import sys\n"
+            "from lorikeet_tpu_torch.cli import main\n"
+            f"rc = main({args!r})\n"
+            + NO_JAX_PACKAGE + "sys.exit(rc)")
+    procs = []
+    for index in (0, 1):
+        env = _env()
+        env.update(LORIKEET_PROCESS_INDEX=str(index),
+                   LORIKEET_PROCESS_COUNT="2")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code], cwd=str(tmp_path), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = [p.communicate(timeout=240) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], outs
+    worker = json.loads(outs[1][0].strip().splitlines()[-1])
+    assert worker["outputs"]["genomes"]["genome"]["role"] == "worker"
+    assert any(not line.startswith("#") for line in open(
+        tmp_path / "out" / "genome" / "genome.vcf"))
 
 
 GENOTYPE_FIXTURE = """
