@@ -117,6 +117,32 @@ Phases, one JSON line each; any failure exits non-zero without the final
            penalty 20, --phred-scaled-global-read-mismapping-rate 30 with
            --disable-symmetric-hmm-normalizing, --use-adaptive-pruning and
            --features-vcf on the planted truth, each at -t 4.
+8e. paths  the CLI's remaining paths on the same genome, each at -t 4 (the
+           earlier phases' pools alive) as a card leg against an f64 leg
+           with `compare`'s bars (same sites, alleles and genotypes, QUAL
+           within 0.1, K2 launched and no pair batch on a host on every card
+           leg); one `paths` line a leg.  `dnds_fst`: --calculate-dnds
+           --gff-file (testkit.genes: about one CDS a kb) --calculate-fst,
+           --qual-by-depth-filter 8; the dN/dS and Fst tables equal
+           between card and f64.  `raw_reads`: --single on FASTQ names a
+           stub `minimap2` (testkit.mapper) maps to each sample BAM's SAM:
+           the BAM-input -t 4 card leg's sites and K2 launches, the cached
+           BAMs byte-identical between card and f64; then --pallas-sw on
+           the cached BAMs (the same VCF bytes, K3 launched), its largest SW
+           batch replayed against the native aligner (`sw_main_path` line
+           `raw_reads`).  `limit`: --limiting-interval 200000-700000: no
+           site outside, the whole-genome card leg's sites 1 kb inside each
+           end, fewer K2 launches.  `cache`: the default card leg into its
+           own directory, again (`"cached": true`, no K2 launch, no file
+           touched), then --force (K2 again, the same VCF bytes).
+           `split_bams`: the genome cut in two at 500 kb (`gA~contig1`,
+           `gB~contig1`), the BAMs rewritten against it, --split-bams; each
+           genome's card VCF against its f64 VCF.  `steal`: a chunk-shard
+           `call -t 1` in which only process 0 of 2 runs, with
+           LORIKEET_SHARD_GRACE 3: K2 launched for every unit, its own and
+           the stolen ones, and the `chunk_shard` gathered VCF byte for
+           byte.  The SAMs and the halves are written in two spawned
+           processes while the first legs run.
 9. main_path  the largest pair-HMM batch of the first card leg, replayed:
            grouped kernel against the plain version, both timed; and the
            same batch one row per pair through the flat kernel
@@ -246,6 +272,16 @@ KNOB_LEGS = (
     ("adaptive_pruning", ["--use-adaptive-pruning"]),
     ("features_vcf", ["--features-vcf", None]))
 ENTRY_TOL = 1e-4         # entry()'s fn on the card vs on the host, f32 both
+#: the `paths` phase: dnds_fst's site filter (the planted variants are
+#: heterozygous, QD ~12-25: at the default 25 most would not count), the
+#: limit leg's interval and the margin inside it where its sites must be
+#: the whole genome's, where split_bams cuts the genome in two, and the
+#: steal leg's LORIKEET_SHARD_GRACE
+PATHS_QD_FILTER = ["--qual-by-depth-filter", "8"]
+PATHS_LIMIT = (200_000, 700_000)
+PATHS_LIMIT_MARGIN = 1_000
+PATHS_SPLIT_AT = 500_000
+PATHS_SHARD_GRACE_S = 3
 
 
 def emit(phase: str, **fields):
@@ -879,9 +915,11 @@ def same_sites(label, vcf, ref_vcf, tags=()) -> tuple:
 def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
              mode="call", cards=None):
     """One run of ``mode`` (`call`, `genotype` or `consensus`) through the
-    CLI at -t ``threads``, under the environment variables of ``env``
-    (None: unset), with ``cards`` (default: the first card) in the place of
-    the visible cards that --devices auto takes; returns its counters.  The
+    CLI at -t ``threads`` on ``bams`` (none: the reads come in ``extra``),
+    under the environment variables of ``env`` (None: unset), with
+    ``cards`` (default: the first card) in the place of the visible cards
+    that --devices auto takes; returns its counters (of the first genome,
+    and each genome's VCF and files under ``genomes``).  The
     parent's K2 batches are seen where they are enqueued, so a batch a
     worker packed counts too (``batch_longest``).  The counting
     wrappers below see the work of this process only: at -t above 1 the
@@ -972,8 +1010,9 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(buf):
-            rc = cli.main([mode, "-t", str(threads), "-r", fasta, "-b",
-                           *bams, "-o", outdir, *extra])
+            rc = cli.main([mode, "-t", str(threads), "-r", fasta,
+                           *(["-b", *bams] if bams else []), "-o", outdir,
+                           *extra])
     finally:
         engine.compute_works_likelihoods = compute
         sc.align_batch_cuda = align_batch
@@ -998,7 +1037,7 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
         "outputs"]["genomes"]
     errors = {g: o["error"] for g, o in genomes.items() if "error" in o}
     check(not errors, f"{label}: genome errors {errors}")
-    (out,) = genomes.values()
+    out = next(iter(genomes.values()))
     esc = dict(ph.ESCALATIONS)
     leg = {"leg": label, "mode": mode, "threads": threads, "flags": extra,
            "wall_s": wall, **work,
@@ -1020,6 +1059,10 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
            "workers": sorted(pool.WORKER_REPORTS.values(),
                              key=lambda r: r["wid"]),
            "env": env, "vcf": out["vcf"], "files": output_files(out),
+           "genomes": {g: {"vcf": o["vcf"], "files": output_files(o)}
+                       for g, o in genomes.items()},
+           "cached": [g for g, o in genomes.items() if o.get("cached")],
+           "dnds": out.get("dnds"), "fst": out.get("fst"),
            "consensus": out.get("consensus", []),
            "timings": out.get("timings", {}),
            "n_variant_groups": out.get("n_variant_groups"),
@@ -1099,11 +1142,11 @@ def call_phase(root):
 
 def output_files(out: dict) -> dict:
     """{file name: path} of every file a genome's run wrote: the VCF, the
-    ANI tables, in genotype mode the strain coverages and FASTAs, and in
-    consensus mode the consensus FASTAs."""
+    ANI tables, in genotype mode the strain coverages and FASTAs, in
+    consensus mode the consensus FASTAs, and the dN/dS and Fst tables."""
     paths = [out["vcf"], *out.get("ani", {}).values(),
              out.get("strain_coverages"), *out.get("strain_fastas", []),
-             *out.get("consensus", [])]
+             *out.get("consensus", []), out.get("dnds"), out.get("fst")]
     return {os.path.basename(p): p for p in paths if p}
 
 
@@ -1626,17 +1669,20 @@ print(json.dumps({"rc": rc, "out": out, "launches": pc.LAUNCHES,
 """
 
 
-def chunk_shard_run(root, label, fasta, bams, flags) -> tuple:
-    """`call -t 1` in two processes started together
-    (LORIKEET_PROCESS_INDEX 0 and 1 of LORIKEET_PROCESS_COUNT 2) into one
-    output directory: ([gatherer's report, worker's report], wall)."""
+def chunk_shard_run(root, label, fasta, bams, flags, indices=(0, 1),
+                    extra_env=None) -> tuple:
+    """`call -t 1` in the processes of ``indices`` (LORIKEET_PROCESS_INDEX
+    of LORIKEET_PROCESS_COUNT 2, started together, with the variables of
+    ``extra_env`` added) into one output directory: (the processes'
+    reports, gatherer first, wall)."""
     import subprocess
     argv = ["call", "-t", "1", "-r", fasta, "-b", *bams, "-o",
             os.path.join(root, label), *flags]
     procs = []
     t0 = time.perf_counter()
-    for index in (0, 1):
-        env = dict(os.environ, LORIKEET_PROCESS_INDEX=str(index),
+    for index in indices:
+        env = dict(os.environ, **(extra_env or {}),
+                   LORIKEET_PROCESS_INDEX=str(index),
                    LORIKEET_PROCESS_COUNT="2")
         env.pop("LORIKEET_DEVICE_ACTIVITY", None)
         procs.append(subprocess.Popen(
@@ -1655,12 +1701,14 @@ def chunk_shard_run(root, label, fasta, bams, flags) -> tuple:
         check(p.returncode == 0, f"{label} process {index}: exit "
               f"{p.returncode}: {err[-2000:]}")
     reports = [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
-    gatherer, worker = reports
-    check(gatherer["out"].get("vcf") and worker["out"].get("vcf") is None
-          and worker["out"].get("role") == "worker"
-          and not gatherer["foreign"] and not worker["foreign"],
-          f"{label}: gatherer {gatherer['out']}, worker {worker['out']}, "
-          f"foreign modules {gatherer['foreign']} {worker['foreign']}")
+    gatherer, *workers = reports
+    check(gatherer["out"].get("vcf")
+          and all(w["out"].get("vcf") is None
+                  and w["out"].get("role") == "worker" for w in workers)
+          and not any(r["foreign"] for r in reports),
+          f"{label}: gatherer {gatherer['out']}, workers "
+          f"{[w['out'] for w in workers]}, foreign modules "
+          f"{[r['foreign'] for r in reports]}")
     return reports, wall
 
 
@@ -1691,7 +1739,32 @@ def chunk_shard_leg(root, fasta, bams, legs) -> dict:
            "f64_files_differing": same_files(
                legs["f64"]["files"], output_files(f64[0]["out"]))}
     emit("modes", leg="chunk_shard", **out)
-    return out
+    return {**out, "vcf": card[0]["out"]["vcf"],
+            "files": output_files(card[0]["out"]),
+            "f64_vcf": f64[0]["out"]["vcf"]}
+
+
+def card_f64_legs(root, label, fasta, bams, flags, env=None) -> tuple:
+    """A card leg and an f64 leg of ``flags`` at -t 4 (``label``_gpu_t4,
+    ``label``_f64_t4): the same sites, alleles and genotypes with QUAL
+    within 0.1, every pair batch of the card leg on K2 and none of the f64
+    leg's on the card.  Returns (card leg, f64 leg, the fields of its
+    line)."""
+    card, *_ = call_leg(f"{label}_gpu_t4", fasta, bams,
+                        os.path.join(root, f"{label}_gpu_t4"), flags,
+                        env=env, threads=POOL_THREADS)
+    f64, *_ = call_leg(f"{label}_f64_t4", fasta, bams,
+                       os.path.join(root, f"{label}_f64_t4"),
+                       ["--force-cpu", *flags], env=env,
+                       threads=POOL_THREADS)
+    check_card_leg(card)
+    check_f64_leg(f64)
+    sites, dq = same_sites(label, card["vcf"], f64["vcf"])
+    return card, f64, {
+        "sites": len(sites), "max_qual_diff": dq, "wall_s": card["wall_s"],
+        "f64_wall_s": f64["wall_s"], "launches": card["launches"],
+        "sw_launches": card["sw_launches"], "dispatch": card["dispatch"],
+        "files_differing": same_files(card["files"], f64["files"])}
 
 
 def knobs_leg(root, fasta, bams, truth_vcf, legs) -> dict:
@@ -1700,19 +1773,9 @@ def knobs_leg(root, fasta, bams, truth_vcf, legs) -> dict:
     out = {}
     for name, flags in KNOB_LEGS:
         flags = [truth_vcf if f is None else f for f in flags]
-        card, *_ = call_leg(f"knob_{name}_gpu_t4", fasta, bams,
-                            os.path.join(root, f"knob_{name}_gpu_t4"), flags,
-                            threads=POOL_THREADS)
-        f64, *_ = call_leg(f"knob_{name}_f64_t4", fasta, bams,
-                           os.path.join(root, f"knob_{name}_f64_t4"),
-                           ["--force-cpu", *flags], threads=POOL_THREADS)
-        sites, dq = same_sites(f"knob {name}", card["vcf"], f64["vcf"])
-        check_card_leg(card)
-        check_f64_leg(f64)
-        out[name] = {"flags": flags, "sites": len(sites), "max_qual_diff": dq,
-                     "wall_s": card["wall_s"], "f64_wall_s": f64["wall_s"],
-                     "launches": card["launches"],
-                     "dispatch": card["dispatch"],
+        card, _, fields = card_f64_legs(root, f"knob_{name}", fasta, bams,
+                                        flags)
+        out[name] = {"flags": flags, **fields,
                      "escalation_share": card["escalation_share"],
                      "vcf_moved_from_default": os.path.basename(
                          card["vcf"]) in same_files(legs["gpu"]["files"],
@@ -1723,18 +1786,344 @@ def knobs_leg(root, fasta, bams, truth_vcf, legs) -> dict:
 
 def modes_phase(root, fasta, bams, truth, legs, dev) -> dict:
     """The CLI's other modes on the `call` phase's genome (see the module
-    docstring): mixed, consensus, summarise, chunk_shard, knobs."""
+    docstring): mixed, consensus, summarise, chunk_shard, knobs.  Returns
+    the `mixed` and `chunk_shard` legs."""
     from lorikeet_tpu_torch.testkit.dataset import write_truth_vcf
     t0 = time.perf_counter()
     mixed = mixed_leg(root, fasta, bams, truth, dev)
     consensus_leg(root, fasta, bams, truth, ["-l", mixed["long_bam"]])
     summarise_leg(root, {"gpu": mixed["card"]["vcf"],
                          "f64": mixed["f64"]["vcf"]})
-    chunk_shard_leg(root, fasta, bams, legs)
+    shard = chunk_shard_leg(root, fasta, bams, legs)
     knobs_leg(root, fasta, bams, write_truth_vcf(
         os.path.join(root, "truth.vcf"), fasta, truth), legs)
     emit("modes_done", seconds=time.perf_counter() - t0)
-    return mixed
+    return {"mixed": mixed, "chunk_shard": shard}
+
+def write_halves(fasta, bam, root, index, cut) -> tuple:
+    """The genome cut in two at ``cut``: one FASTA with the contigs
+    `gA~contig1` and `gB~contig1` (two genomes by their names) and the
+    sample BAM ``bam`` rewritten against it; a read across the cut is left
+    out, a mate on the other half keeps its place there.  Returns (FASTA,
+    BAM); the FASTA is written by ``index`` 0."""
+    from lorikeet_tpu_torch.io.bam import BamReader, BamRecord
+    from lorikeet_tpu_torch.io.bam_writer import write_bam
+    from lorikeet_tpu_torch.io.fasta import FastaReader
+    reader = FastaReader(fasta)
+    (contig,) = reader.names
+    length = reader.length(contig)
+    names = [f"gA~{contig}", f"gB~{contig}"]
+    halves = os.path.join(root, "halves.fna")
+    if index == 0:
+        seq = bytes(reader.fetch(contig)).decode()
+        with open(halves, "w") as fh:
+            fh.write(f">{names[0]}\n{seq[:cut]}\n>{names[1]}\n{seq[cut:]}\n")
+    reader.close()
+
+    def place(pos):
+        return (0, pos) if pos < cut else (1, pos - cut)
+
+    recs = []
+    for r in BamReader(bam).fetch():
+        if r.pos < cut < r.reference_end:
+            continue
+        tid, pos = place(r.pos)
+        mate_tid, mate_pos = place(r.mate_pos) if r.mate_tid >= 0 \
+            else (-1, -1)
+        recs.append(BamRecord(
+            name=r.name, flag=r.flag, tid=tid, pos=pos, mapq=r.mapq,
+            cigar=r.cigar, seq=r.seq, qual=r.qual, mate_tid=mate_tid,
+            mate_pos=mate_pos, tlen=r.tlen if mate_tid == tid else 0,
+            tags=dict(r.tags.items())))
+    path = os.path.join(root, f"halves{index}.bam")
+    write_bam(path, names, [cut, length - cut], recs)
+    return halves, path
+
+
+def paths_inputs(root, fasta, bams):
+    """Start writing the `raw_reads` SAMs and the `split_bams` inputs in
+    two spawned processes (host set-up, overlapped with the first legs);
+    returns their futures and the pool."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    from lorikeet_tpu_torch.testkit.mapper import write_sam
+    reads = os.path.join(root, "reads")
+    os.makedirs(reads, exist_ok=True)
+    pool = ProcessPoolExecutor(2, mp_context=mp.get_context("spawn"))
+    sams = [pool.submit(write_sam, bam, os.path.join(reads, f"sample{s}.sam"))
+            for s, bam in enumerate(bams)]
+    halves = [pool.submit(write_halves, fasta, bam, root, s, PATHS_SPLIT_AT)
+              for s, bam in enumerate(bams)]
+    return sams, halves, pool
+
+
+def read_lines(path) -> list:
+    with open(path) as fh:
+        return fh.read().splitlines()
+
+
+def dnds_fst_leg(root, fasta, bams) -> dict:
+    """`--calculate-dnds --gff-file --calculate-fst` over about a CDS a
+    kb (testkit.genes): the card leg's dN/dS and Fst tables equal the f64
+    leg's, row for row."""
+    from lorikeet_tpu_torch.testkit.genes import write_gff
+    gff = write_gff(os.path.join(root, "genes.gff"), "contig1",
+                    GENOME_KBP * 1000, seed=0)
+    n_cds = len(read_lines(gff)) - 1
+    card, f64, out = card_f64_legs(
+        root, "paths_dnds_fst", fasta, bams,
+        [*PATHS_QD_FILTER, "--calculate-dnds", "--gff-file", gff,
+         "--calculate-fst"])
+    for table in ("dnds", "fst"):
+        check(card[table] and f64[table],
+              f"dnds_fst: no {table} table ({card[table]}, {f64[table]})")
+        a, b = read_lines(card[table]), read_lines(f64[table])
+        differ = [(x, y) for x, y in zip(a, b) if x != y]
+        check(len(a) == len(b) and not differ,
+              f"dnds_fst: the {table} tables differ between card and f64 "
+              f"({len(a)} / {len(b)} rows): {differ[:5]}")
+    rows = [line.split("\t") for line in read_lines(card["dnds"])]
+    snp_cols = [k for k, c in enumerate(rows[0]) if c.endswith("_snps")]
+    with_snps = sum(any(int(r[k]) for k in snp_cols) for r in rows[1:])
+    check(len(rows) - 1 == n_cds and with_snps > 0,
+          f"dnds_fst: {len(rows) - 1} rows for {n_cds} CDS, {with_snps} "
+          "with a SNP")
+    out.update(cds=n_cds, cds_with_snps=with_snps,
+               fst_rows=len(read_lines(card["fst"])) - 1,
+               tables_identical=["dnds", "fst"])
+    emit("paths", leg="dnds_fst", **out)
+    return out
+
+
+def raw_reads_leg(root, fasta, sams, base, dev) -> dict:
+    """`call --single` on FASTQ names that a stub `minimap2` maps to the
+    sample BAMs' SAM (testkit.mapper): the sites and K2 launches of the
+    BAM-input card leg ``base``, the cached BAMs of the card and f64 legs
+    byte-identical; then `--pallas-sw` on the card leg's cached BAMs, its
+    largest SW batch replayed against the native aligner."""
+    from lorikeet_tpu_torch.ops.smith_waterman import (
+        ALIGNMENT_TO_BEST_HAPLOTYPE_SW_PARAMETERS, OverhangStrategy,
+    )
+    from lorikeet_tpu_torch.testkit.mapper import install_stub_mapper
+    routes, fastqs = {}, []
+    for s, sam in enumerate(sams):
+        fastqs.append(os.path.join(os.path.dirname(sam), f"reads{s}.fq"))
+        with open(fastqs[-1], "w") as fh:
+            fh.write("@r\nACGT\n+\nIIII\n")
+        routes[os.path.basename(fastqs[-1])] = sam
+    bindir = os.path.join(root, "bin")
+    install_stub_mapper(bindir, "minimap2", routes)
+    env = {"PATH": bindir + os.pathsep + os.environ.get("PATH", "")}
+    reads = ["--single", *fastqs]
+    card, _, out = card_f64_legs(root, "paths_raw_reads", fasta, [], reads,
+                                 env)
+    caches = {}
+    for label in ("gpu", "f64"):
+        d = os.path.join(root, f"paths_raw_reads_{label}_t4", "bams")
+        caches[label] = {n: os.path.join(d, n) for n in os.listdir(d)}
+    want = sorted(f"reads{s}.bam{x}" for s in range(len(sams))
+                  for x in ("", ".bai"))
+    diff = same_files(caches["gpu"], caches["f64"])
+    check(sorted(caches["gpu"]) == want and not diff,
+          f"raw_reads: cached BAMs {sorted(caches['gpu'])}, differing "
+          f"between card and f64: {diff}")
+    _, dq_bam = same_sites("raw_reads against the BAM-input card leg",
+                           card["vcf"], base["vcf"])
+    check(card["launches"] == base["launches"],
+          f"raw_reads: {card['launches']} K2 launches, the BAM-input leg "
+          f"{base['launches']}")
+    sw, _, sw_largest, _ = call_leg(
+        "paths_raw_reads_gpu_sw_t4", fasta, [],
+        os.path.join(root, "paths_raw_reads_gpu_sw_t4"),
+        ["--pallas-sw", *reads, "--bam-file-cache-directory",
+         os.path.dirname(caches["gpu"][want[0]])], env=env,
+        threads=POOL_THREADS)
+    check_card_leg(sw)
+    check(sw["sw_launches"] > 0 and sw["sw_counts"]["device"] > 0
+          and sw_largest, f"raw_reads --pallas-sw: SW launches "
+          f"{sw['sw_launches']}, routes {sw['sw_counts']}")
+    with open(sw["vcf"], "rb") as a, open(card["vcf"], "rb") as b:
+        check(a.read() == b.read(), "raw_reads: the --pallas-sw VCF is not "
+              "byte-identical to the card leg's")
+    replay = sw_phase("raw_reads", sw_largest,
+                      ALIGNMENT_TO_BEST_HAPLOTYPE_SW_PARAMETERS,
+                      OverhangStrategy.SOFTCLIP, dev, timed=False,
+                      phase="sw_main_path")
+    out.update(bam_input_launches=base["launches"],
+               max_qual_diff_vs_bam_input=dq_bam,
+               cached_bams_identical=want, sw_wall_s=sw["wall_s"],
+               sw_leg_launches=sw["launches"],
+               sw_leg_sw_launches=sw["sw_launches"],
+               sw_form_launches=sw["sw_form_launches"],
+               sw_largest_batch=len(sw_largest),
+               sw_mismatches=replay.get("mismatches", 0))
+    emit("paths", leg="raw_reads", **out)
+    return replay
+
+
+def limit_leg(root, fasta, bams, base) -> dict:
+    """`--limiting-interval` PATHS_LIMIT: no site outside it, the sites of
+    the whole-genome card leg ``base`` inside it (PATHS_LIMIT_MARGIN in
+    from each end), fewer K2 launches."""
+    lo, hi = PATHS_LIMIT
+    card, _, out = card_f64_legs(root, "paths_limit", fasta, bams,
+                                 ["--limiting-interval", f"{lo}-{hi}"])
+    got = read_sites(card["vcf"])
+    outside = [k for k, _ in got if not lo <= k[0] - 1 < hi]
+    check(got and not outside, f"limit: {len(got)} sites, outside "
+          f"[{lo}, {hi}): {outside[:5]}")
+
+    def inner(sites):
+        return [(k, q) for k, q in sites if lo + PATHS_LIMIT_MARGIN
+                <= k[0] - 1 < hi - PATHS_LIMIT_MARGIN]
+    a, b = inner(got), inner(read_sites(base["vcf"]))
+    check([k for k, _ in a] == [k for k, _ in b],
+          f"limit: {len(a)} sites inside the margin, the whole-genome leg "
+          f"{len(b)}")
+    dq = max((abs(x - y) for (_, x), (_, y) in zip(a, b)), default=0.0)
+    check(dq <= QUAL_TOL, f"limit: QUAL differs from the whole-genome leg "
+          f"by {dq}")
+    check(card["launches"] < base["launches"],
+          f"limit: {card['launches']} K2 launches, the whole genome "
+          f"{base['launches']}")
+    out.update(interval=[lo, hi], sites_inside_margin=len(a),
+               max_qual_diff_vs_whole=dq, whole_launches=base["launches"])
+    emit("paths", leg="limit", **out)
+    return out
+
+
+def cache_leg(root, fasta, bams, base, f64_base) -> dict:
+    """The default card leg into an output directory of its own (the files
+    of the pool phase's ``base``), again (cached: no K2 launch, no file
+    touched), then with --force (K2 again, the same VCF bytes); the first
+    run's sites against the f64 -t 4 leg ``f64_base``."""
+    outdir = os.path.join(root, "paths_cache")
+    first, *_ = call_leg("paths_cache_gpu_t4", fasta, bams, outdir, [],
+                         threads=POOL_THREADS)
+    check_card_leg(first)
+    diff = same_files(base["files"], first["files"])
+    check(not first["cached"] and not diff,
+          f"cache: first run cached {first['cached']}, files {diff} differ "
+          "from the pool leg's")
+    with open(first["vcf"], "rb") as fh:
+        vcf = fh.read()
+    stamps = {n: os.stat(p).st_mtime_ns for n, p in first["files"].items()}
+    again, *_ = call_leg("paths_cache_again_t4", fasta, bams, outdir, [],
+                         threads=POOL_THREADS)
+    check(again["cached"] == list(again["genomes"]) and again["launches"] == 0
+          and not any(again["dispatch"].values())
+          and stamps == {n: os.stat(p).st_mtime_ns
+                         for n, p in first["files"].items()},
+          f"cache: rerun cached {again['cached']}, K2 launches "
+          f"{again['launches']}, dispatch {again['dispatch']}")
+    forced, *_ = call_leg("paths_cache_force_gpu_t4", fasta, bams, outdir,
+                          ["--force"], threads=POOL_THREADS)
+    check_card_leg(forced)
+    with open(forced["vcf"], "rb") as fh:
+        check(not forced["cached"] and fh.read() == vcf
+              and os.stat(forced["vcf"]).st_mtime_ns > stamps[
+                  os.path.basename(forced["vcf"])],
+              "cache: the --force VCF was not rewritten with the same bytes")
+    sites, dq = same_sites("paths cache", first["vcf"], f64_base["vcf"])
+    out = {"sites": len(sites), "max_qual_diff": dq,
+           "wall_s": first["wall_s"], "f64_wall_s": f64_base["wall_s"],
+           "cached_wall_s": again["wall_s"], "force_wall_s": forced["wall_s"],
+           "launches": first["launches"],
+           "cached_launches": again["launches"],
+           "force_launches": forced["launches"],
+           "sw_launches": first["sw_launches"], "dispatch": first["dispatch"],
+           "files_differing": same_files(first["files"], f64_base["files"])}
+    emit("paths", leg="cache", **out)
+    return out
+
+
+def split_bams_leg(root, halves) -> dict:
+    """`--split-bams` over the two genomes of write_halves: each genome's
+    card VCF against its f64 VCF.  Both legs share one split cache: the
+    f64 leg reuses the BAMs the card leg split."""
+    (fasta, bam0), (_, bam1) = halves
+    cache = os.path.join(root, "paths_split_cache")
+    flags = ["--split-bams", "--bam-file-cache-directory", cache]
+    card, *_ = call_leg("paths_split_bams_gpu_t4", fasta, [bam0, bam1],
+                        os.path.join(root, "paths_split_bams_gpu_t4"), flags,
+                        threads=POOL_THREADS)
+    f64, *_ = call_leg("paths_split_bams_f64_t4", fasta, [bam0, bam1],
+                       os.path.join(root, "paths_split_bams_f64_t4"),
+                       ["--force-cpu", *flags], threads=POOL_THREADS)
+    check_card_leg(card)
+    check_f64_leg(f64)
+    genomes = sorted(card["genomes"])
+    split = sorted(os.listdir(cache))
+    want = sorted(f"halves{s}_{g}.bam{x}" for s in range(2) for g in genomes
+                  for x in ("", ".bai"))
+    check(genomes == ["gA", "gB"] == sorted(f64["genomes"])
+          and [n for n in split if not n.startswith(".")] == want,
+          f"split_bams: genomes {genomes} / {sorted(f64['genomes'])}, "
+          f"split cache {split}")
+    per_genome, differing = {}, []
+    for g in genomes:
+        sites, dq = same_sites(f"split_bams {g}", card["genomes"][g]["vcf"],
+                               f64["genomes"][g]["vcf"])
+        per_genome[g] = {"sites": len(sites), "max_qual_diff": dq}
+        differing += [f"{g}/{n}" for n in same_files(
+            card["genomes"][g]["files"], f64["genomes"][g]["files"])]
+    out = {"genomes": per_genome, "wall_s": card["wall_s"],
+           "f64_wall_s": f64["wall_s"], "launches": card["launches"],
+           "sw_launches": card["sw_launches"], "dispatch": card["dispatch"],
+           "files_differing": differing, "split_bams": want}
+    emit("paths", leg="split_bams", **out)
+    return out
+
+
+def steal_leg(root, fasta, bams, shard) -> dict:
+    """A chunk-shard `call` in which only process 0 of 2 runs: after
+    LORIKEET_SHARD_GRACE it computes the missing units on the card too,
+    launching K2 as the two processes of `chunk_shard` did together, and
+    writes their gathered VCF byte for byte."""
+    reports, wall = chunk_shard_run(
+        root, "paths_steal", fasta, bams, [], indices=(0,),
+        extra_env={"LORIKEET_SHARD_GRACE": str(PATHS_SHARD_GRACE_S)})
+    (gatherer,) = reports
+    check(gatherer["launches"] == sum(shard["launches"])
+          and gatherer["dispatch"]["host"] == 0,
+          f"steal: K2 launches {gatherer['launches']} (chunk_shard "
+          f"{shard['launches']} over {shard['units']} units), dispatch "
+          f"{gatherer['dispatch']}")
+    with open(gatherer["out"]["vcf"], "rb") as a, \
+            open(shard["vcf"], "rb") as b:
+        check(a.read() == b.read(), "steal: the VCF is not the chunk_shard "
+              "card leg's gathered VCF")
+    sites, dq = same_sites("paths steal", gatherer["out"]["vcf"],
+                           shard["f64_vcf"])
+    out = {"sites": len(sites), "max_qual_diff": dq, "wall_s": wall,
+           "f64_wall_s": shard["f64_wall_s"], "grace_s": PATHS_SHARD_GRACE_S,
+           "launches": gatherer["launches"], "sw_launches": 0,
+           "dispatch": gatherer["dispatch"], "units": shard["units"],
+           "files_differing": same_files(
+               shard["files"], output_files(gatherer["out"]))}
+    emit("paths", leg="steal", **out)
+    return out
+
+
+def paths_phase(root, fasta, bams, pool_legs, shard, dev) -> dict:
+    """The CLI's remaining paths on the `call` phase's genome at -t 4 (see
+    the module docstring): dnds_fst, raw_reads, limit, cache, split_bams,
+    steal.  Returns the raw-read SW replay."""
+    t0 = time.perf_counter()
+    sams, halves, inputs = paths_inputs(root, fasta, bams)
+    try:
+        base, f64_base = pool_legs["gpu_t4"], pool_legs["f64_t4"]
+        dnds_fst_leg(root, fasta, bams)
+        replay = raw_reads_leg(root, fasta, [f.result() for f in sams], base,
+                               dev)
+        limit_leg(root, fasta, bams, base)
+        cache_leg(root, fasta, bams, base, f64_base)
+        split_bams_leg(root, [f.result() for f in halves])
+        steal_leg(root, fasta, bams, shard)
+    finally:
+        inputs.shutdown(cancel_futures=True)
+    emit("paths_done", seconds=time.perf_counter() - t0)
+    return replay
 
 
 def nccl_phase(pairs, span, dev) -> dict:
@@ -1963,11 +2352,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         legs, batch, sw_batch, span, dataset, truth = call_phase(root)
         gpu, gpu_sw = legs["gpu"], legs["gpu_sw"]
-        pool_phase(root, *dataset[:2], legs)
+        pool_legs = pool_phase(root, *dataset[:2], legs)
         genotype_phase(root, *dataset[:2])
         devices_phase(root, *dataset[:2], legs)
         strains_phase(root)
-        mixed = modes_phase(root, *dataset[:2], truth, legs, dev)
+        modes = modes_phase(root, *dataset[:2], truth, legs, dev)
+        mixed = modes["mixed"]
+        raw_sw = paths_phase(root, *dataset[:2], pool_legs,
+                             modes["chunk_shard"], dev)
         # the main path's largest batches, replayed after the counted run:
         # each kernel at the shapes the main path gives it
         main_batch = kernel_phase("main_path", batch, dev, timed=True)
@@ -1989,7 +2381,7 @@ def main() -> int:
     entry_phase(dev)
     checks += [main_batch, mixed["kernel"]]
     flat_checks.append(flat_main)
-    sw_checks += [sw_main, mixed["sw"]]
+    sw_checks += [sw_main, mixed["sw"], raw_sw]
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "lorikeet_tpu", "bench_e2e"))
