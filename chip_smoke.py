@@ -7,7 +7,8 @@ Phases, one JSON line each; any failure exits non-zero without the final
 ``ok`` line:
 
 1. probe   torch/CUDA versions, the card, its capability (9, 0), nvcc.
-2. build   compile csrc/pairhmm.cu (grouped and flat kernel) and csrc/sw.cu
+2. build   compile csrc/pairhmm.cu (grouped, flat and wire decode kernel)
+           and csrc/sw.cu
            (warp and CTA form) for sm_90a from the checkout, in parallel,
            and print their ptxas lines and each kernel instantiation's
            registers; a register spill fails the run.
@@ -143,6 +144,29 @@ Phases, one JSON line each; any failure exits non-zero without the final
            the stolen ones, and the `chunk_shard` gathered VCF byte for
            byte.  The SAMs and the halves are written in two spawned
            processes while the first legs run.
+8f. wire   the wire path and the router on the same genome.  The measured
+           host-to-card rate and the auto gate's verdict (`wire_gate`).
+           `wire_t1`: -t 1 with LORIKEET_WIRE_COMPRESS=1: every file the
+           `gpu` leg's, the decode kernel launched, no batch on a host.
+           The -t 4 card legs of `pool` and `knobs` (every -t 4 leg checks
+           that each served batch came as a wire or a flat job and each
+           wire job was decoded once): their workers packed in the gate's
+           form.  Wire against flat at -t 4 (LORIKEET_WIRE_COMPRESS 1 then
+           0, each starts its pool, then 0, 1, 1, 0, 0, 1 on the warm
+           pools): every file the `gpu` leg's, the decode kernel launched
+           on each wire leg, the walls and pair-HMM stages.  The service
+           depth (pool.SERVICE_DEPTH set to 1 / 2 on the warm flat pool, in
+           turns 1, 2, 2, 1): the same files, the walls.  `route_auto_t1`
+           (LORIKEET_PALLAS_ROUTE=auto, the router from a fresh state) and
+           `remote_auto_t4` (LORIKEET_REMOTE_ROUTE=auto): against the f64
+           leg with `compare`'s bars, recall >= 0.99, the device / host /
+           remote / local split and the routers' rates.  Then the decode
+           kernel on the main-path batch and on it with a haplotype of the
+           next odd length above the longest (an odd width): byte for byte
+           against its plain version and the flat planes, K2 on its planes
+           bit for bit against K2 on the flat ones, the kernel timed alone
+           and with its wrapper, the plain version beside them
+           (`wire_kernel` lines).
 9. main_path  the largest pair-HMM batch of the first card leg, replayed:
            grouped kernel against the plain version, both timed; and the
            same batch one row per pair through the flat kernel
@@ -173,8 +197,9 @@ Phases, one JSON line each; any failure exits non-zero without the final
 15. entry  entry()'s fn, the batched pair-HMM wavefront (torch ops), on the
            card against the same example on the host (1e-4), timed.
 
-The line before the last lists the three kernels (launches on the path that
-runs each, counted from 0 just before it, and K3's launches by form on the
+The line before the last lists the four kernels (launches on the path that
+runs each, counted from 0 just before it: the wire decode's on the first
+-t 4 leg with the wire form forced on; K3's launches by form on the
 `mixed` card leg; largest error against the plain version; main-path
 times; the bound, the least time the card could take for the same work),
 then the card's name and power limit; the last is the
@@ -282,6 +307,26 @@ PATHS_LIMIT = (200_000, 700_000)
 PATHS_LIMIT_MARGIN = 1_000
 PATHS_SPLIT_AT = 500_000
 PATHS_SHARD_GRACE_S = 3
+#: the router's state in a fresh process, taken before the first leg: a leg
+#: that sets LORIKEET_PALLAS_ROUTE starts from it (call_leg)
+ROUTER_START = {}
+#: the `wire` phase: the -t 1 leg with the wire form forced on;
+#: the cost-router legs; wire against flat at -t 4 and the service depth,
+#: in turns
+WIRE_LEG_ENV = {"LORIKEET_WIRE_COMPRESS": "1"}
+ROUTE_LEGS = (("route_auto_t1", 1, {"LORIKEET_PALLAS_ROUTE": "auto"}),
+              ("remote_auto_t4", POOL_THREADS,
+               {"LORIKEET_REMOTE_ROUTE": "auto"}))
+#: LORIKEET_WIRE_COMPRESS a -t 4 leg: the first leg of each setting starts
+#: its pool (spawn, BAM decode in the workers) and is reported apart; the
+#: next six are timed in turns
+WIRE_T4_ORDER = ("1", "0", "0", "1", "1", "0", "0", "1")
+#: pool.SERVICE_DEPTH a -t 4 leg on the warm flat pool, in turns
+DEPTH_ORDER = (1, 2, 2, 1)
+#: cycles the card sleeps before a timed launch, so that the host has
+#: issued it (checks, allocations) before the start event: ~1 ms at the
+#: H100's clocks, ten times the decode wrapper's host time
+QUEUE_CYCLES = 2_000_000
 
 
 def emit(phase: str, **fields):
@@ -303,6 +348,28 @@ def cuda_median_ms(fn, runs: int = TIMED_RUNS) -> float:
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def queued_median_ms(fn, runs: int = TIMED_RUNS) -> float:
+    """Median of ``runs`` timings of fn()'s work on the card alone: the
+    card sleeps QUEUE_CYCLES first, so fn's launches are queued before the
+    start event runs, and the events bracket the kernels, not the host's
+    issue of them."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_CYCLES)
         start.record()
         fn()
         end.record()
@@ -442,7 +509,7 @@ def kernel_phase(name, pairs, dev, timed: bool) -> dict:
         F32_SUSPECT_LOG10, pairhmm_forward_checked, pairhmm_forward_f64,
     )
 
-    arrays, out_pos = pc.prepare_grouped_jobs(pairs)
+    arrays, out_pos = pc.prepare_grouped_jobs(pairs, wire=False)
     t = pc.to_tensors(arrays, dev)
     pos = torch.from_numpy(out_pos).to(dev)
     launches = pc.LAUNCHES
@@ -469,7 +536,9 @@ def kernel_phase(name, pairs, dev, timed: bool) -> dict:
            "escalated_rows": int((~keep).sum()),
            # unique pairs only: duplicate tuples share one table cell
            **bound(PAIRHMM_OPS_PER_CELL * sum(uniq.values()), PEAK_F32_OPS_S,
-                   tensor_bytes(*t.values()) + 4 * len(uniq))}
+                   tensor_bytes(*(v for v in t.values()
+                                  if isinstance(v, torch.Tensor)))
+                   + 4 * len(uniq))}
     if timed:
         ms = cuda_median_ms(lambda: pc.pairhmm_grouped_cuda(t))
         plain_ms = cuda_median_ms(lambda: pc.pairhmm_sweep_torch(t),
@@ -477,7 +546,8 @@ def kernel_phase(name, pairs, dev, timed: bool) -> dict:
         t0 = time.perf_counter()
         pc.pairhmm_forward_grouped(pairs, dev)
         forward_ms = (time.perf_counter() - t0) * 1e3
-        pack_ms = host_median_ms(lambda: pc.prepare_grouped_jobs(pairs))
+        pack_ms = host_median_ms(
+            lambda: pc.prepare_grouped_jobs(pairs, wire=False))
         out.update(ms=ms, plain_ms=plain_ms, forward_ms=forward_ms,
                    pack_ms=pack_ms,
                    gcups=out["cells"] / (ms * 1e-3) / 1e9,
@@ -912,6 +982,31 @@ def same_sites(label, vcf, ref_vcf, tags=()) -> tuple:
     return got, dq
 
 
+def job_codes(arrays) -> dict:
+    """A grouped job's form and, for a wire job, the codebook's and symbol
+    table's keys in use (key 0, the pad, and the rest are nonzero; 256 and
+    16 entries, so this costs nothing inside a timed leg)."""
+    import numpy as np
+    if arrays.get("mode") != "wire":
+        return {"mode": "flat"}
+    return {"mode": "wire",
+            "tuples": int(np.count_nonzero(arrays["cb"])) + 1,
+            "symbols": int(np.count_nonzero(arrays["sym_tab"])) + 1}
+
+
+def summarise_jobs(jobs) -> dict:
+    """Per form: the jobs the parent enqueued and, for wire jobs, the most
+    tuples and symbols one of them held."""
+    out = {}
+    for job in jobs:
+        s = out.setdefault(job["mode"], {"jobs": 0})
+        s["jobs"] += 1
+        for key in ("tuples", "symbols"):
+            if key in job:
+                s[key + "_max"] = max(s.get(key + "_max", 0), job[key])
+    return out
+
+
 def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
              mode="call", cards=None):
     """One run of ``mode`` (`call`, `genotype` or `consensus`) through the
@@ -944,6 +1039,7 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
     sw_largest = {"device": 0, "pairs": None}
     activity = {"spans": 0, "positions": -1, "span": None}
     batch_longest = []
+    jobs = []
     compute = engine.compute_works_likelihoods
     align_batch = sc.align_batch_cuda
     smooth = pipeline.smoothed_activity_device
@@ -953,6 +1049,7 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
         # every K2 batch of the parent, its own or served to a worker
         batch_longest.append([int(arrays["read_lens"].max()),
                               int(arrays["hap_lens"].max())])
+        jobs.append(job_codes(arrays))
         return enqueue(arrays, *args, **kwargs)
 
     def activity_counted(*args, **kwargs):
@@ -995,14 +1092,22 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
             os.environ.pop(key, None)
         else:
             os.environ[key] = value
+    # the parent's router reads LORIKEET_PALLAS_ROUTE at import: a leg that
+    # sets it gets that mode, from the state a fresh process starts in
+    saved_router = lk._ROUTE_MODE, lk._PERF
+    if env.get("LORIKEET_PALLAS_ROUTE"):
+        lk._ROUTE_MODE = env["LORIKEET_PALLAS_ROUTE"]
+        lk._PERF = dict(ROUTER_START)
     progress.GLOBAL_STAGES = {}
-    lk.DISPATCH_COUNTS.update(device=0, host=0, remote=0)
+    lk.DISPATCH_COUNTS.update(device=0, host=0, remote=0, local=0)
     pool.WORKER_COUNTS.update(dict.fromkeys(pool.WORKER_COUNTS, 0))
     pool.SPAN_RERUNS.update(spans=0)
     pool.WORKER_REPORTS.clear()
     ph.ESCALATIONS.update(checked=0, escalated=0)
     pc.LAUNCHES = 0
     pc.CARD_LAUNCHES.clear()
+    pc.WIRE_LAUNCHES = 0
+    pc.WIRE_COUNTS.update(wire=0, flat=0)
     sc.SW_LAUNCHES = 0
     sc.SW_FORM_LAUNCHES.update(warp=0, cta=0)
     sc.SW_COUNTS.update(device=0, shortcut=0, scalar_long=0)
@@ -1024,6 +1129,8 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
                 os.environ.pop(key, None)
             else:
                 os.environ[key] = old
+        router = dict(lk._PERF)
+        lk._ROUTE_MODE, lk._PERF = saved_router
     wall = time.perf_counter() - t0
     launches = pc.LAUNCHES
     card_launches = dict(pc.CARD_LAUNCHES)
@@ -1045,6 +1152,9 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
            "stages_s": stages, "launches": launches,
            "card_launches": card_launches, "devices": devices,
            "dispatch": dict(lk.DISPATCH_COUNTS),
+           "wire_launches": pc.WIRE_LAUNCHES,
+           "wire_counts": dict(pc.WIRE_COUNTS),
+           "jobs": summarise_jobs(jobs), "router": router,
            "escalated": esc["escalated"], "checked": esc["checked"],
            "escalation_share": (esc["escalated"] / esc["checked"]
                                 if esc["checked"] else 0.0),
@@ -1246,6 +1356,7 @@ def pool_phase(root, fasta, bams, legs) -> dict:
             not (w["torch_imported"] or w["cuda_initialized"]
                  or w["foreign_modules"]) for w in workers),
               f"{label}: worker reports {workers}")
+        check_wire_counts(leg)
         emit("pool", leg=label, t1_leg=base, threads=POOL_THREADS,
              wall_s=leg["wall_s"], t1_wall_s=ref["wall_s"],
              spawn_s=max(w["spawn_s"] for w in workers),
@@ -1255,8 +1366,10 @@ def pool_phase(root, fasta, bams, legs) -> dict:
              escalation_share=leg["escalation_share"],
              launches=leg["launches"], sw_launches=leg["sw_launches"],
              span_reruns=reruns, dispatch=dispatch, sw_counts=leg["sw_counts"],
-             worker_counts=leg["worker_counts"], files_identical=sorted(
-                 leg["files"]))
+             worker_counts=leg["worker_counts"],
+             wire_counts=leg["wire_counts"],
+             wire_launches=leg["wire_launches"], jobs=leg["jobs"],
+             files_identical=sorted(leg["files"]))
         out[label] = leg
     out["default_cli"] = default_cli_leg(root, fasta, bams,
                                          legs["gpu"]["vcf"])
@@ -1511,6 +1624,17 @@ def strains_phase(root) -> dict:
             "strains_12": twelve}
 
 
+def check_wire_counts(leg):
+    """Every pair batch a -t 4 leg's workers sent came to the service as a
+    wire or a flat job, and each wire job was decoded once on each card
+    of the list."""
+    wc = leg["wire_counts"]
+    check(wc["wire"] + wc["flat"] == leg["dispatch"]["remote"]
+          and leg["wire_launches"] == wc["wire"] * len(leg["devices"]),
+          f"{leg['leg']}: wire / flat jobs {wc}, decode launches "
+          f"{leg['wire_launches']}, served batches {leg['dispatch']}")
+
+
 def check_card_leg(leg):
     """A card leg ran every pair batch on the card: K2 launched, no batch
     on a host, and at -t above 1 every batch served to a worker."""
@@ -1758,12 +1882,15 @@ def card_f64_legs(root, label, fasta, bams, flags, env=None) -> tuple:
                        ["--force-cpu", *flags], env=env,
                        threads=POOL_THREADS)
     check_card_leg(card)
+    check_wire_counts(card)
     check_f64_leg(f64)
     sites, dq = same_sites(label, card["vcf"], f64["vcf"])
     return card, f64, {
         "sites": len(sites), "max_qual_diff": dq, "wall_s": card["wall_s"],
         "f64_wall_s": f64["wall_s"], "launches": card["launches"],
         "sw_launches": card["sw_launches"], "dispatch": card["dispatch"],
+        "wire_counts": card["wire_counts"],
+        "wire_launches": card["wire_launches"], "jobs": card["jobs"],
         "files_differing": same_files(card["files"], f64["files"])}
 
 
@@ -1787,7 +1914,7 @@ def knobs_leg(root, fasta, bams, truth_vcf, legs) -> dict:
 def modes_phase(root, fasta, bams, truth, legs, dev) -> dict:
     """The CLI's other modes on the `call` phase's genome (see the module
     docstring): mixed, consensus, summarise, chunk_shard, knobs.  Returns
-    the `mixed` and `chunk_shard` legs."""
+    the `mixed` and `chunk_shard` legs and the knobs' lines."""
     from lorikeet_tpu_torch.testkit.dataset import write_truth_vcf
     t0 = time.perf_counter()
     mixed = mixed_leg(root, fasta, bams, truth, dev)
@@ -1795,10 +1922,10 @@ def modes_phase(root, fasta, bams, truth, legs, dev) -> dict:
     summarise_leg(root, {"gpu": mixed["card"]["vcf"],
                          "f64": mixed["f64"]["vcf"]})
     shard = chunk_shard_leg(root, fasta, bams, legs)
-    knobs_leg(root, fasta, bams, write_truth_vcf(
+    knobs = knobs_leg(root, fasta, bams, write_truth_vcf(
         os.path.join(root, "truth.vcf"), fasta, truth), legs)
     emit("modes_done", seconds=time.perf_counter() - t0)
-    return {"mixed": mixed, "chunk_shard": shard}
+    return {"mixed": mixed, "chunk_shard": shard, "knobs": knobs}
 
 def write_halves(fasta, bam, root, index, cut) -> tuple:
     """The genome cut in two at ``cut``: one FASTA with the contigs
@@ -2126,6 +2253,180 @@ def paths_phase(root, fasta, bams, pool_legs, shard, dev) -> dict:
     return replay
 
 
+def odd_width_pairs(pairs):
+    """``pairs`` with one pair more whose haplotype is the shortest odd
+    length above the longest: an odd haplotype width, the case where the
+    wire form pads the nibble rows."""
+    import numpy as np
+    hmax = max(len(p[0]) for p in pairs)
+    hap = np.resize(pairs[0][0], hmax + 1 + hmax % 2)
+    return list(pairs) + [(hap,) + tuple(pairs[0][1:])]
+
+
+def wire_kernel_phase(name, pairs, dev) -> dict:
+    """``pairs`` packed in the wire form: the decode kernel against its
+    plain version on the card and against the flat job's planes, byte for
+    byte (``mismatches``: bytes that differ), and K2 on the decoded planes
+    against K2 on the flat ones, bit for bit.  Timed with CUDA events,
+    median of 7: the kernel alone (``ms``, queued behind a sleep on the
+    card), the wrapper as a whole (``wrapper_ms``: its checks and output
+    allocations too) and the plain version.  The bound: the bytes the
+    decode reads and writes over the memory rate (no arithmetic to speak
+    of)."""
+    import numpy as np
+    import torch
+
+    from lorikeet_tpu_torch.ops import pairhmm_cuda as pc
+
+    wire, out_pos = pc.prepare_grouped_jobs(pairs, wire=True)
+    flat, _ = pc.prepare_grouped_jobs(pairs, wire=False)
+    check(wire["mode"] == "wire", f"{name}: the batch went flat")
+    t = pc.to_tensors(wire, dev)
+    launches = pc.WIRE_LAUNCHES
+    got = pc.wire_decode_cuda(t)
+    torch.cuda.synchronize()
+    check(pc.WIRE_LAUNCHES == launches + 1,
+          f"{name}: decode launch not counted")
+    plain = pc.wire_decode_torch(t)
+    width = flat["haps"].shape[1]
+    mismatches = sum(int((got[k] != plain[k]).sum()) for k in plain)
+    vs_flat = sum(int((got[k].cpu().numpy() != flat[k]).sum())
+                  for k in pc._PLANES)
+    haps = got["haps"].cpu().numpy()
+    vs_flat += int((haps[:, :width] != flat["haps"]).sum())
+    vs_flat += int(np.count_nonzero(haps[:, width:]))
+    check(mismatches == 0 and vs_flat == 0,
+          f"{name}: decode kernel vs plain {mismatches} bytes, vs the flat "
+          f"planes {vs_flat} bytes")
+    # the pairs' values only: K2 writes nothing for a tile's pad rows
+    pos = torch.from_numpy(out_pos).to(dev)
+    k2_wire = pc.pairhmm_grouped_cuda(pc._planes(t))[pos]
+    k2_flat = pc.pairhmm_grouped_cuda(pc.to_tensors(flat, dev))[pos]
+    check(torch.equal(k2_wire, k2_flat),
+          f"{name}: K2 on the decoded planes differs from K2 on the flat")
+    out = {"pairs": len(pairs), "rows": int(wire["qidx"].shape[0]),
+           "rpad": int(wire["qidx"].shape[1]),
+           "haps": int(wire["hap_nib"].shape[0]), "hmax": int(width),
+           "hpad": int(haps.shape[1]), "mismatches": mismatches,
+           "mismatches_vs_flat": vs_flat,
+           "tuples": int(np.count_nonzero(wire["cb"])) + 1,
+           "symbols": int(np.count_nonzero(wire["sym_tab"])) + 1,
+           "wire_bytes": tensor_bytes(*(t[k] for k in pc.WIRE_NAMES)),
+           "flat_bytes": int(sum(flat[k].nbytes
+                                 for k in (*pc._PLANES, "haps"))),
+           **bound(0, PEAK_F32_OPS_S,
+                   tensor_bytes(*(t[k] for k in pc.WIRE_NAMES))
+                   + tensor_bytes(*got.values())),
+           "ms": queued_median_ms(lambda: pc.wire_decode_cuda(t)),
+           "wrapper_ms": cuda_median_ms(lambda: pc.wire_decode_cuda(t)),
+           "plain_ms": cuda_median_ms(lambda: pc.wire_decode_torch(t))}
+    emit("wire_kernel", batch=name, **out)
+    return out
+
+
+def wire_phase(root, fasta, bams, truth, legs, t4_legs, batch, dev) -> tuple:
+    """The wire path and the router (see the module docstring).  Returns
+    the first forced-wire -t 4 leg (K6's counted path) and the decode
+    kernel's checks on the main-path batch and the odd-width one."""
+    from lorikeet_tpu_torch.ops import pairhmm_cuda as pc
+    from lorikeet_tpu_torch.parallel import pool
+    t0 = time.perf_counter()
+    gate = pc._wire_enabled()
+    emit("wire_gate", link_bps=pc._link_bps(), wire_enabled=gate,
+         LORIKEET_WIRE_COMPRESS=os.environ.get("LORIKEET_WIRE_COMPRESS"))
+    gpu = legs["gpu"]
+    wire, *_ = call_leg("wire_t1", fasta, bams, os.path.join(root, "wire_t1"),
+                        [], env=WIRE_LEG_ENV)
+    diff = same_files(gpu["files"], wire["files"])
+    check(not diff, f"wire_t1: {diff} differ from the gpu leg's")
+    check(wire["wire_launches"] > 0 and wire["dispatch"]["host"] == 0
+          and wire["launches"] == gpu["launches"]
+          and wire["wire_counts"]["wire"] + wire["wire_counts"]["flat"]
+          == wire["launches"],
+          f"wire_t1: decode launches {wire['wire_launches']}, jobs "
+          f"{wire['wire_counts']}, K2 launches {wire['launches']} (gpu "
+          f"{gpu['launches']}), dispatch {wire['dispatch']}")
+    emit("wire", leg="wire_t1", wall_s=wire["wall_s"],
+         gpu_wall_s=gpu["wall_s"], pairhmm_s=wire["pairhmm_s"],
+         gpu_pairhmm_s=gpu["pairhmm_s"], launches=wire["launches"],
+         wire_launches=wire["wire_launches"],
+         wire_counts=wire["wire_counts"], jobs=wire["jobs"],
+         dispatch=wire["dispatch"], files_identical=sorted(wire["files"]))
+    # the default -t 4 call legs: the workers packed in the gate's form
+    t4 = {label: {"wire_counts": leg["wire_counts"],
+                  "wire_launches": leg["wire_launches"], "jobs": leg["jobs"]}
+          for label, leg in t4_legs.items()}
+    check(all((leg["wire_counts"]["wire"] > 0) == gate for leg in t4.values()),
+          f"a -t 4 call leg's workers did not follow the gate ({gate}): {t4}")
+    emit("wire", leg="t4_legs", gate=gate, legs=t4)
+    # wire against flat at -t 4, then the service depth on the flat pool
+    walls, started, first_wire = {}, {}, None
+    for run, setting in enumerate(WIRE_T4_ORDER):
+        label = f"{'wire' if setting == '1' else 'flat'}_t4"
+        leg, *_ = call_leg(f"{label}_{run}", fasta, bams,
+                           os.path.join(root, f"{label}_{run}"), [],
+                           env={"LORIKEET_WIRE_COMPRESS": setting},
+                           threads=POOL_THREADS)
+        check_card_leg(leg)
+        check_wire_counts(leg)
+        wc = leg["wire_counts"]
+        check((wc["wire"] > 0) == (setting == "1") and (
+            setting == "1" or wc["flat"] == leg["dispatch"]["remote"]),
+              f"{label}_{run}: jobs {wc}")
+        diff = same_files(gpu["files"], leg["files"])
+        check(not diff, f"{label}_{run}: {diff} differ from the gpu leg's")
+        if setting == "1" and first_wire is None:
+            first_wire = leg
+        sample = (leg["wall_s"], leg["pairhmm_s"])
+        if label in started:
+            walls.setdefault(label, []).append(sample)
+        else:
+            started[label] = sample
+        emit("wire", leg=label, run=run, wall_s=leg["wall_s"],
+             pairhmm_s=leg["pairhmm_s"], dispatch=leg["dispatch"],
+             wire_counts=wc, wire_launches=leg["wire_launches"],
+             jobs=leg["jobs"], files_identical=sorted(leg["files"]))
+    emit("wire", leg="wire_vs_flat_t4", walls_pairhmm_s=walls,
+         pool_start_walls_pairhmm_s=started)
+    depth = {}
+    saved = pool.SERVICE_DEPTH
+    try:
+        for run, setting in enumerate(DEPTH_ORDER):
+            pool.SERVICE_DEPTH = setting
+            label = f"depth{setting}_t4"
+            leg, *_ = call_leg(f"{label}_{run}", fasta, bams,
+                               os.path.join(root, f"{label}_{run}"), [],
+                               env={"LORIKEET_WIRE_COMPRESS": "0"},
+                               threads=POOL_THREADS)
+            check_card_leg(leg)
+            diff = same_files(gpu["files"], leg["files"])
+            check(not diff, f"{label}_{run}: {diff} differ from the gpu leg's")
+            depth.setdefault(label, []).append(leg["wall_s"])
+    finally:
+        pool.SERVICE_DEPTH = saved
+    emit("wire", leg="depth_t4", walls_s=depth)
+    f64 = legs["f64"]
+    for label, threads, env in ROUTE_LEGS:
+        leg, *_ = call_leg(label, fasta, bams, os.path.join(root, label), [],
+                           env=env, threads=threads)
+        sites, dq = same_sites(f"{label} against the f64 leg", leg["vcf"],
+                               f64["vcf"])
+        rec = leg_recall(leg, truth)
+        check(rec >= MIN_RECALL, f"{label}: recall {rec}")
+        emit("wire", leg=label, threads=threads, env=env,
+             wall_s=leg["wall_s"], f64_wall_s=f64["wall_s"],
+             gpu_wall_s=gpu["wall_s"], pairhmm_s=leg["pairhmm_s"],
+             sites=len(sites), max_qual_diff=dq, recall=rec,
+             dispatch=leg["dispatch"], launches=leg["launches"],
+             wire_counts=leg["wire_counts"], router=leg["router"],
+             worker_routers=[w.get("perf") for w in leg["workers"]])
+    checks = [wire_kernel_phase("main_path", batch, dev),
+              wire_kernel_phase("odd_width", odd_width_pairs(batch), dev)]
+    check(checks[1]["hmax"] % 2 == 1, "odd_width: the width is even")
+    emit("wire_done", seconds=time.perf_counter() - t0)
+    return first_wire, checks
+
+
 def nccl_phase(pairs, span, dev) -> dict:
     """`initialize_distributed` at world size 1 on the card (an NCCL group:
     NCCL puts no two ranks on one card), a collective of each kind on it,
@@ -2319,8 +2620,10 @@ def main() -> int:
     import numpy as np
 
     from lorikeet_tpu_torch import device
+    from lorikeet_tpu_torch.calling import likelihoods as lk
     from lorikeet_tpu_torch.ops import _build
 
+    ROUTER_START.update(lk._PERF)       # before any batch has taught it
     info = device.probe()
     emit("probe", **info)
     check(info["capability"] == [9, 0],
@@ -2360,6 +2663,12 @@ def main() -> int:
         mixed = modes["mixed"]
         raw_sw = paths_phase(root, *dataset[:2], pool_legs,
                              modes["chunk_shard"], dev)
+        t4_legs = {label: pool_legs[label] for label in ("gpu_t4",
+                                                         "gpu_sw_t4")}
+        t4_legs.update((f"knob_{name}", knob)
+                       for name, knob in modes["knobs"].items())
+        wire_t4, wire_checks = wire_phase(root, *dataset[:2], truth, legs,
+                                          t4_legs, batch, dev)
         # the main path's largest batches, replayed after the counted run:
         # each kernel at the shapes the main path gives it
         main_batch = kernel_phase("main_path", batch, dev, timed=True)
@@ -2416,7 +2725,15 @@ def main() -> int:
         "replaces": "lorikeet_tpu/ops/pairhmm_pallas.py:91",
         "launches": flat_launches,
         "max_abs_err": max(c["max_abs_err_vs_plain"] for c in flat_checks),
-        **times(flat_main)}]}),
+        **times(flat_main)}, {
+        "name": "pairhmm_wire_decode", "route": "cuda",
+        "source": "lorikeet_tpu_torch/csrc/pairhmm.cu",
+        "replaces": "lorikeet_tpu/ops/pairhmm_pallas.py:865",
+        # the wire path: the first -t 4 leg with the wire form forced on
+        "launches": wire_t4["wire_launches"],
+        # exact: bytes that differ from the plain version's, 0 as checked
+        "max_abs_err": float(max(c["mismatches"] for c in wire_checks)),
+        **times(wire_checks[0])}]}),
         flush=True)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -129,6 +129,8 @@ constexpr int kMaxRegK = 16;   // longest register strip (Rpad 512)
 constexpr int kLongCtas = 264; // CTAs of a flat grid whose scratch is per warp
 constexpr int kLongRowCtas = 132;  // the same for the grouped kernel's CTAs
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kDecodeThreads = 256;  // threads per CTA, wire decode
+constexpr int kDecodeCtas = 1056;    // grid cap (8 CTAs an SM), wire decode
 
 constexpr float kLn10Over10 = -0x1.d791c6p-3f;  // f32(-ln(10) / 10)
 constexpr float kThird = 0x1.555556p-2f;        // f32(1 / TRISTATE_CORRECTION)
@@ -614,6 +616,87 @@ int launch_flat(const FlatPlan& plan, cudaStream_t stream,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---- wire decode: the grouped kernel's planes from a wire job ----
+//
+// Replaces the decode prologue of `_grouped_wire_call` in
+// lorikeet_tpu/ops/pairhmm_pallas.py (:865), which rebuilds the exact flat
+// planes of a wire job (ops/pairhmm_pack.py:_compress_dispatch) before the
+// grouped kernel runs.  Each qidx byte indexes the 256-entry codebook; the
+// u32 there is the lane's (q, iq, dq, gcp) tuple, q in the low byte (the
+// JAX u32 view, :851-855).  Each nibble byte holds two bases as symbols,
+// the even lane in the low half; the 16-entry symbol table maps them back.
+//
+// What bounds it: bytes.  It reads 1.5 bytes a read lane and half a byte a
+// haplotype base and writes 5 and 1, with a table lookup each, so it runs
+// at the memory rate at best.  Design: the codebook (1 KB) and the symbol
+// table sit in shared memory; one grid-stride loop over 4-byte words of the
+// three inputs in turn (qidx, read_nib, then hap_nib and its tail bytes)
+// writes whole words of every output plane.  The planes are torch
+// allocations (aligned) and a read row's width is a multiple of 128, so
+// qidx and read_nib hold whole words; a haplotype nibble row need not, so
+// hap_nib runs as one flat stream whose last 1-3 bytes are decoded alone.
+// A separate pass, launched on K2's stream before it; folding the decode
+// into K2's staging of a block's haplotype is later work.
+__global__ void __launch_bounds__(kDecodeThreads)
+wire_decode_kernel(const uint32_t* __restrict__ qidx,
+                   const uint32_t* __restrict__ read_nib,
+                   const uint8_t* __restrict__ hap_nib,
+                   const uint32_t* __restrict__ cb,
+                   const uint8_t* __restrict__ sym_tab,
+                   long long q_words, long long r_words, long long h_bytes,
+                   uint32_t* __restrict__ quals, uint32_t* __restrict__ ins_q,
+                   uint32_t* __restrict__ del_q, uint32_t* __restrict__ gcp_q,
+                   uint2* __restrict__ read_u8, uint8_t* __restrict__ haps) {
+  __shared__ uint32_t cb_s[256];
+  __shared__ uint32_t sym_s[16];
+  for (int t = threadIdx.x; t < 256; t += blockDim.x) cb_s[t] = cb[t];
+  if (threadIdx.x < 16) sym_s[threadIdx.x] = sym_tab[threadIdx.x];
+  __syncthreads();
+  const long long h_words = h_bytes / 4;
+  const long long total = q_words + r_words + h_words + h_bytes % 4;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x
+                     + threadIdx.x;
+       i < total; i += stride) {
+    if (i < q_words) {
+      // four lanes: plane p's byte k is byte p of lane k's tuple
+      const uint32_t w = qidx[i];
+      const uint32_t v0 = cb_s[w & 0xFF], v1 = cb_s[(w >> 8) & 0xFF];
+      const uint32_t v2 = cb_s[(w >> 16) & 0xFF], v3 = cb_s[w >> 24];
+      uint32_t* planes[4] = {quals, ins_q, del_q, gcp_q};
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const int sh = 8 * p;
+        planes[p][i] = ((v0 >> sh) & 0xFF) | (((v1 >> sh) & 0xFF) << 8)
+                       | (((v2 >> sh) & 0xFF) << 16) | ((v3 >> sh) << 24);
+      }
+      continue;
+    }
+    long long j = i - q_words;          // a word of read_nib, or of hap_nib
+    const bool read = j < r_words;
+    if (!read) j -= r_words;
+    if (!read && j >= h_words) {
+      // a tail byte of hap_nib: two bases
+      const long long b = 4 * h_words + (j - h_words);
+      const uint32_t v = hap_nib[b];
+      haps[2 * b] = static_cast<uint8_t>(sym_s[v & 0xF]);
+      haps[2 * b + 1] = static_cast<uint8_t>(sym_s[v >> 4]);
+      continue;
+    }
+    const uint32_t w =
+        read ? read_nib[j] : reinterpret_cast<const uint32_t*>(hap_nib)[j];
+    // eight bases, nibble k (bits 4k..4k+3) is lane k of the word's span
+    uint32_t lo = 0, hi = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      lo |= sym_s[(w >> (4 * k)) & 0xF] << (8 * k);
+      hi |= sym_s[(w >> (4 * k + 16)) & 0xF] << (8 * k);
+    }
+    (read ? read_u8 : reinterpret_cast<uint2*>(haps))[j] = make_uint2(lo, hi);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -711,6 +794,40 @@ int pairhmm_flat_launch(const void* quals, const void* ins_q,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef LORIKEET_ARGS
+}
+
+// Launch the wire decode on `stream`; returns cudaGetLastError() (0 on
+// success).  Device pointers: qidx u8 [rows, rpad], read_nib u8
+// [rows, rpad / 2], hap_nib u8 [n_haps, hpad / 2], cb u32 [256], sym_tab u8
+// [16]; written: quals, ins_q, del_q, gcp_q, read_u8 u8 [rows, rpad] and
+// haps u8 [n_haps, hpad] (hpad even), the grouped kernel's inputs.
+int pairhmm_wire_decode_launch(const void* qidx, const void* read_nib,
+                               const void* hap_nib, const void* cb,
+                               const void* sym_tab, long long rows,
+                               int rpad, long long n_haps, int hpad,
+                               void* quals, void* ins_q, void* del_q,
+                               void* gcp_q, void* read_u8, void* haps,
+                               void* stream) {
+  if (rows < 0 || n_haps < 0 || rpad < 0 || rpad % 128 != 0 || hpad < 0
+      || hpad % 2 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long q_words = rows * rpad / 4;
+  const long long r_words = rows * rpad / 8;
+  const long long h_bytes = n_haps * hpad / 2;
+  const long long total = q_words + r_words + h_bytes / 4 + h_bytes % 4;
+  if (total == 0) return 0;
+  const long long ctas = (total + kDecodeThreads - 1) / kDecodeThreads;
+  const int grid = static_cast<int>(ctas < kDecodeCtas ? ctas : kDecodeCtas);
+  wire_decode_kernel<<<grid, kDecodeThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(qidx),
+      static_cast<const uint32_t*>(read_nib),
+      static_cast<const uint8_t*>(hap_nib), static_cast<const uint32_t*>(cb),
+      static_cast<const uint8_t*>(sym_tab), q_words, r_words, h_bytes,
+      static_cast<uint32_t*>(quals), static_cast<uint32_t*>(ins_q),
+      static_cast<uint32_t*>(del_q), static_cast<uint32_t*>(gcp_q),
+      static_cast<uint2*>(read_u8), static_cast<uint8_t*>(haps));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -25,6 +25,15 @@ The flat form is one row per pair: read row p against haplotype row p.
   planes.  Every block is computed alone at the batch's own Rpad and
   Hmax, so each pair's value does not depend on how many devices share
   the batch.
+- A job the packer encoded in the wire form (``arrays["mode"] ==
+  "wire"``, ``ops/pairhmm_pack.py:_compress_dispatch``) is decoded on each
+  device of the list before the grouped kernel runs there:
+  :func:`wire_decode_torch` is the plain version, :func:`wire_decode_cuda`
+  launches ``wire_decode_kernel`` (the decode of the JAX package's
+  ``_grouped_wire_call``).  ``LORIKEET_WIRE_COMPRESS`` (``auto``, ``1``,
+  ``0``) decides whether the parent packs its own batches so
+  (:func:`_wire_enabled`: under ``auto``, when the measured host-to-card
+  rate, :func:`_link_bps`, is below 2 GB/s), and a pool's workers theirs.
 - :func:`pack_flat_inputs`, :func:`pairhmm_flat_torch` and
   :func:`pairhmm_flat_cuda` are the same three for the flat kernel, whose
   pairs run in classes of read length (:func:`flat_classes`), a launch each;
@@ -35,6 +44,8 @@ The flat form is one row per pair: read row p against haplotype row p.
 from __future__ import annotations
 
 import ctypes
+import os
+import time
 
 import numpy as np
 import torch
@@ -44,7 +55,7 @@ from lorikeet_tpu_torch.ops.pairhmm import TRISTATE_CORRECTION
 # the grouped packer is numpy only and lives apart, so that a pool worker
 # packs its batches without importing torch; its names stay importable here
 from lorikeet_tpu_torch.ops.pairhmm_pack import (  # noqa: F401
-    GROUP_BLOCK_B, _PLANES, _round_up, prepare_grouped_jobs,
+    GROUP_BLOCK_B, WIRE_NAMES, _PLANES, _round_up, prepare_grouped_jobs,
 )
 
 # One-hot base-bit encoding.  The N-aware base match ((r == h) | r == N |
@@ -78,6 +89,13 @@ LAUNCHES = 0
 CARD_LAUNCHES = {}
 #: kernel launches made by pairhmm_flat_cuda in this process
 FLAT_LAUNCHES = 0
+#: kernel launches made by wire_decode_cuda in this process
+WIRE_LAUNCHES = 0
+#: grouped jobs enqueued in this process by the form they came in: a job
+#: whose values overflow the wire tables comes flat (a mode, not a fallback)
+WIRE_COUNTS = {"wire": 0, "flat": 0}
+#: the measured host-to-card rate, bytes/s (None: not measured yet)
+_LINK_BPS = [None]
 
 _LN10_OVER_M10 = np.float32(-np.log(10.0) / 10.0)
 _THIRD = np.float32(1.0 / TRISTATE_CORRECTION)
@@ -91,14 +109,57 @@ _EPS_OF_PHRED = np.exp((np.arange(256, dtype=np.float32) * _LN10_OVER_M10)
                        .astype(np.float64)).astype(np.float32)
 
 
+def _tensor(v: np.ndarray) -> torch.Tensor:
+    """A host array as a tensor; u32 (the wire codebook) as its int32 view,
+    which every torch build moves and indexes."""
+    return torch.from_numpy(v.view(np.int32) if v.dtype == np.uint32 else v)
+
+
 def to_tensors(arrays: dict, device) -> dict:
     """The packed arrays as tensors on ``device``, plus the base-bit
     table the kernel and the plain version both read.  What is not an
-    array (the flat packer's ``groups``) stays on the host as it is."""
-    t = {k: torch.from_numpy(v).to(device) if isinstance(v, np.ndarray)
-         else v for k, v in arrays.items()}
+    array (the flat packer's ``groups``, a grouped job's ``mode``) stays on
+    the host as it is."""
+    t = {k: _tensor(v).to(device) if isinstance(v, np.ndarray) else v
+         for k, v in arrays.items()}
     t["base_bits"] = torch.from_numpy(_BASE_BITS).to(device)
     return t
+
+
+def _wire_enabled() -> bool:
+    """Whether the parent packs its own grouped batches, and a pool it
+    starts has its workers pack theirs, in the wire form:
+    ``LORIKEET_WIRE_COMPRESS`` 1 / 0 forces it on / off; ``auto`` (the
+    default) turns it on when the measured host-to-card rate is below
+    2 GB/s, the JAX package's crossover."""
+    mode = os.environ.get("LORIKEET_WIRE_COMPRESS", "auto")
+    if mode == "auto":
+        bps = _link_bps()
+        return bool(bps) and bps < 2e9
+    return mode != "0"
+
+
+def _link_bps() -> float:
+    """The host-to-card rate in bytes/s, measured once a process: a 4 MB
+    copy from pageable host memory to the first card of the device list,
+    best of 2.  0.0 when the process has no card (the rate is moot)."""
+    if _LINK_BPS[0] is None:
+        rate = 0.0
+        if torch.cuda.is_available():
+            from lorikeet_tpu_torch.parallel.sharding import get_devices
+            cards = [d for d in get_devices() if d.type == "cuda"]
+            if cards:
+                buf = torch.zeros(4 << 20, dtype=torch.uint8)
+                best = float("inf")
+                for _ in range(2):
+                    torch.cuda.synchronize(cards[0])
+                    t0 = time.perf_counter()
+                    buf.to(cards[0])
+                    torch.cuda.synchronize(cards[0])
+                    best = min(best, time.perf_counter() - t0)
+                rate = buf.numel() / max(best, 1e-6)
+        _LINK_BPS[0] = rate
+    return _LINK_BPS[0]
 
 
 def pairhmm_sweep_torch(t: dict) -> torch.Tensor:
@@ -220,6 +281,10 @@ def _kernel() -> ctypes.CDLL:
         lib.pairhmm_scratch_floats.restype = ctypes.c_longlong
         lib.pairhmm_flat_launch.argtypes = [vp] * 12 + [ci] * 5 + [vp, vp]
         lib.pairhmm_flat_launch.restype = ci
+        ll = ctypes.c_longlong
+        lib.pairhmm_wire_decode_launch.argtypes = [vp] * 5 + [ll, ci, ll, ci] \
+            + [vp] * 7
+        lib.pairhmm_wire_decode_launch.restype = ci
         for fn in (lib.pairhmm_flat_scratch_floats,
                    lib.pairhmm_flat_hap_scratch_ints):
             fn.argtypes = [ci, ci, ci, ci]
@@ -232,7 +297,8 @@ _DTYPES = {"tile_tab": torch.int32, "hap_tab": torch.int32,
            "hap_lens": torch.int32, "read_lens": torch.int32,
            "haps": torch.uint8, "base_bits": torch.int32,
            "order": torch.int32,
-           **{p: torch.uint8 for p in _PLANES}}
+           **{p: torch.uint8 for p in _PLANES},
+           **{w: torch.uint8 for w in WIRE_NAMES}, "cb": torch.int32}
 _GROUPED_NAMES = ("tile_tab", "hap_tab", "hap_lens", *_PLANES, "read_lens",
                   "haps", "base_bits")
 _FLAT_NAMES = (*_PLANES, "read_lens", "haps", "hap_lens", "base_bits",
@@ -284,6 +350,84 @@ def _check_flat_inputs(t: dict) -> None:
                          "rows in turn, one class of FLAT_ORDER each")
 
 
+def wire_decode_torch(t: dict) -> dict:
+    """Plain torch version of the wire decode: the five u8 read planes
+    [rows, Rpad] and ``haps`` u8 [n_haps, Hpad] of a wire job's tensors
+    (``ops/pairhmm_pack.py:_compress_dispatch``), on their device.  The
+    codebook ``cb`` is the int32 view of the u32 words: a plane's byte is
+    masked after the shift, so the sign does not reach it."""
+    sym = t["sym_tab"]
+
+    def unnib(p):
+        return torch.stack([p & 0xF, p >> 4], dim=-1).reshape(p.shape[0], -1)
+
+    v = t["cb"][t["qidx"].long()]
+    out = {name: ((v >> (8 * k)) & 0xFF).to(torch.uint8)
+           for k, name in enumerate(_PLANES[:4])}
+    out["read_u8"] = sym[unnib(t["read_nib"]).long()]
+    out["haps"] = sym[unnib(t["hap_nib"]).long()]
+    return out
+
+
+def _check_wire_inputs(t: dict) -> tuple:
+    """Device, dtype, contiguity and shapes of a wire job's tensors;
+    returns (rows, Rpad, n_haps, Hpad)."""
+    dev = t["qidx"].device
+    for name in WIRE_NAMES:
+        x, dtype = t[name], _DTYPES[name]
+        if x.device != dev or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"wire decode input {name}: want contiguous "
+                             f"{dtype} on {dev}, got {x.dtype} on "
+                             f"{x.device}")
+    rows, rpad = t["qidx"].shape
+    n_haps, half = t["hap_nib"].shape
+    if rpad % 128 or t["read_nib"].shape != (rows, rpad // 2) \
+            or t["cb"].shape != (256,) or t["sym_tab"].shape != (16,):
+        raise ValueError(f"wire decode inputs disagree in shape: qidx "
+                         f"{tuple(t['qidx'].shape)}, read_nib "
+                         f"{tuple(t['read_nib'].shape)}, cb "
+                         f"{tuple(t['cb'].shape)}, sym_tab "
+                         f"{tuple(t['sym_tab'].shape)}")
+    return rows, rpad, n_haps, 2 * half
+
+
+def wire_decode_cuda(t: dict) -> dict:
+    """The wire decode (:func:`wire_decode_torch`'s result) on the device of
+    ``t``'s tensors: ``wire_decode_kernel`` for a CUDA device, launched on
+    its current stream, the plain version for the CPU.  It never falls
+    back: a failed build or launch raises."""
+    global WIRE_LAUNCHES
+    dev = t["qidx"].device
+    if dev.type == "cpu":
+        return wire_decode_torch(t)
+    if dev.type != "cuda":
+        raise ValueError(f"wire_decode_cuda: unsupported device {dev}")
+    rows, rpad, n_haps, hpad = _check_wire_inputs(t)
+    lib = _kernel()
+    out = {p: torch.empty((rows, rpad), dtype=torch.uint8, device=dev)
+           for p in _PLANES}
+    out["haps"] = torch.empty((n_haps, hpad), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.pairhmm_wire_decode_launch(
+            *(t[k].data_ptr() for k in WIRE_NAMES), rows, rpad, n_haps, hpad,
+            *(out[k].data_ptr() for k in (*_PLANES, "haps")), stream)
+    if rc != 0:
+        raise RuntimeError(f"wire decode launch failed on {dev}: CUDA error "
+                           f"{rc} (rows={rows}, Rpad={rpad}, haps={n_haps}, "
+                           f"Hpad={hpad})")
+    WIRE_LAUNCHES += 1
+    return out
+
+
+def _planes(t: dict) -> dict:
+    """The grouped kernel's inputs from a job's tensors: a wire job's
+    planes decoded on its device, a flat job's as they are."""
+    if t.get("mode") != "wire":
+        return t
+    return {**t, **wire_decode_cuda(t)}
+
+
 def pairhmm_grouped_cuda(t: dict, card: int = 0) -> torch.Tensor:
     """Grouped forward, f32 [nblocks * 32], on the device of ``t``'s
     tensors: the CUDA kernel for a CUDA device, the plain version
@@ -318,16 +462,17 @@ def pairhmm_grouped_cuda(t: dict, card: int = 0) -> torch.Tensor:
     return out
 
 
-def pairhmm_forward_grouped(pairs, devices) -> np.ndarray:
+def pairhmm_forward_grouped(pairs, devices, wire=None) -> np.ndarray:
     """Forward log10 likelihoods (f32 values as float64) [len(pairs)] for a
     flat (hap, read, q, iq, dq, gcp) pair list on ``devices`` (a device or
-    a list of them): the host half (:func:`prepare_grouped_jobs`) and the
-    device half (:func:`enqueue_grouped_jobs`, :func:`readback_grouped`) in
-    turn."""
+    a list of them): the host half (:func:`prepare_grouped_jobs`, in the
+    wire form when ``wire`` asks for it; None: :func:`_wire_enabled`) and
+    the device half (:func:`enqueue_grouped_jobs`,
+    :func:`readback_grouped`) in turn."""
     if not pairs:
         return np.zeros(0)
     devices = device_list(devices)
-    arrays, out_pos = prepare_grouped_jobs(pairs)
+    arrays, out_pos = prepare_grouped_jobs(pairs, wire)
     return readback_grouped(enqueue_grouped_jobs(arrays, out_pos, devices))
 
 
@@ -339,13 +484,16 @@ def enqueue_grouped_jobs(arrays: dict, out_pos: np.ndarray, devices,
     device i gets its share of ``tile_tab`` / ``hap_tab`` with the whole
     read and haplotype planes.  For each non-empty share, under device i
     and on ``streams[i]`` (its current stream when None): the copies in
-    from pinned memory, the grouped kernel, the copy of the share's values
-    back to pinned memory, and an event.  On a CPU device the plain
-    version runs at once.  Returns the handle that
+    from pinned memory, a wire job's decode (:func:`wire_decode_cuda`, the
+    whole planes on each device), the grouped kernel, the copy of the
+    share's values back to pinned memory, and an event.  On a CPU device
+    the plain versions run at once.  Returns the handle that
     :func:`readback_grouped` waits on."""
     from lorikeet_tpu_torch.parallel.hosts import even_shares
     devices = device_list(devices)
     streams = streams or [None] * len(devices)
+    mode = arrays.get("mode", "flat")
+    WIRE_COUNTS[mode] += 1
     nblocks = arrays["tile_tab"].size
     shares = []
     host = None
@@ -357,21 +505,22 @@ def enqueue_grouped_jobs(arrays: dict, out_pos: np.ndarray, devices,
                  "hap_tab": arrays["hap_tab"][lo:hi]}
         if device.type == "cpu":
             shares.append((pairhmm_grouped_cuda(
-                to_tensors(share, device), card), None))
+                _planes(to_tensors(share, device)), card), None))
             continue
         if host is None:
-            host = {k: torch.from_numpy(v).pin_memory()
-                    for k, v in arrays.items()}
+            host = {k: _tensor(v).pin_memory() for k, v in arrays.items()
+                    if isinstance(v, np.ndarray)}
             host["base_bits"] = torch.from_numpy(_BASE_BITS).pin_memory()
         stream = stream or torch.cuda.current_stream(device)
-        # the kernel launches on the current stream of the current device:
-        # the copies, the launch and the copy back must all be issued under
-        # this device and this stream, or the copy back could race the
-        # kernel
+        # the kernels launch on the current stream of the current device:
+        # the copies, the decode, the launch and the copy back must all be
+        # issued under this device and this stream, or one could race the
+        # next
         with torch.cuda.device(device), torch.cuda.stream(stream):
             t = {k: (v[lo:hi] if k in ("tile_tab", "hap_tab") else v)
                  .to(device, non_blocking=True) for k, v in host.items()}
-            vals = pairhmm_grouped_cuda(t, card)
+            t["mode"] = mode
+            vals = pairhmm_grouped_cuda(_planes(t), card)
             out = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
             out.copy_(vals, non_blocking=True)
             done = torch.cuda.Event()

@@ -1,11 +1,20 @@
 """Host half of the grouped pair-HMM dispatch: numpy only, no torch.
 
 The packer of ``ops/pairhmm_cuda.py``'s grouped kernel (counterpart of
-``pack_grouped_inputs`` in lorikeet_tpu/ops/pairhmm_pallas.py).  It sits in
-a module of its own so that a ``-t`` pool worker, which packs its span's
-pair batch for the parent's card, never imports torch: a worker then starts
-in about a second instead of paying for torch's CUDA libraries
+``pack_grouped_inputs`` in lorikeet_tpu/ops/pairhmm_pallas.py) and its wire
+codec (``_compress_dispatch`` there).  It sits in a
+module of its own so that a ``-t`` pool worker, which packs its span's pair
+batch for the parent's card, never imports torch: a worker then starts in
+about a second instead of paying for torch's CUDA libraries
 (parallel/pool.py).
+
+The wire form of a job ships the read and haplotype bases as 4-bit symbols
+against a 16-entry symbol table and each read lane's (q, iq, dq, gcp) tuple
+as a u8 index into a 256-entry u32 codebook: 1.5 bytes a lane and half a
+byte a haplotype base instead of 5 and 1.  The card decodes it back to the
+exact planes (``pairhmm_cuda.wire_decode_cuda``) before the grouped kernel
+runs, so the likelihoods are those of the flat job bit for bit.  A job whose
+values overflow either table goes flat.
 """
 from __future__ import annotations
 
@@ -46,11 +55,31 @@ def _first_seen(ids: np.ndarray) -> tuple:
     return rank[inverse.reshape(-1)], first[by_first]
 
 
-def prepare_grouped_jobs(pairs) -> tuple:
+def prepare_grouped_jobs(pairs, wire=None) -> tuple:
     """Host half of the grouped dispatch: a pool worker runs it on its own
     CPU and ships the arrays to the parent's card, where
     ``pairhmm_cuda.enqueue_grouped_jobs`` takes them.  Dedups a flat
-    (hap, read, q, iq, dq, gcp) pair list into grouped tables.  Reads sharing an identical haplotype set (one region's reads)
+    (hap, read, q, iq, dq, gcp) pair list into grouped tables
+    (:func:`pack_grouped_tables`), then encodes them in the wire form when
+    ``wire`` asks for it (:func:`_compress_dispatch`; None: the card's link
+    decides, ``pairhmm_cuda._wire_enabled``, which only the parent asks:
+    a pool worker is handed the parent's verdict, parallel/pool.py).
+
+    Returns ``(arrays, out_pos)``: ``arrays`` is the job, its ``"mode"``
+    (``"wire"`` or ``"flat"``) beside its arrays; ``out_pos[k]`` is the
+    flat position of pairs[k]'s value (see :func:`pack_grouped_tables`)."""
+    arrays, out_pos = pack_grouped_tables(pairs)
+    if wire is None:
+        # the gate measures the card's link: torch, so the parent's only
+        from lorikeet_tpu_torch.ops.pairhmm_cuda import _wire_enabled
+        wire = _wire_enabled()
+    mode, arrays = _compress_dispatch(arrays, wire)
+    return {"mode": mode, **arrays}, out_pos
+
+
+def pack_grouped_tables(pairs) -> tuple:
+    """Dedups a flat (hap, read, q, iq, dq, gcp) pair list into grouped
+    tables.  Reads sharing an identical haplotype set (one region's reads)
     tile together; each read and haplotype is packed once.  Reads and
     haplotypes are told apart by object identity, and the tables are built
     with array operations over the whole list: nothing here iterates over
@@ -142,3 +171,90 @@ def prepare_grouped_jobs(pairs) -> tuple:
     arrays["haps"] = haps.reshape(n_haps, hmax)
     return arrays, out_pos
 
+
+
+# ---- the wire form (counterpart of _compress_dispatch and its caches) ----
+
+_SYM_CAP = 16
+
+
+class _SortedCodeCache:
+    """Incremental sorted value->index cache: encoding is a searchsorted
+    against known keys (new values extend the key set); the per-dispatch
+    codebook ships the full key table.  Misses beyond `cap` disable the
+    encoding for that dispatch."""
+
+    def __init__(self, cap, dtype):
+        self.cap = cap
+        self.keys = np.zeros(1, dtype)      # 0 = the pad value
+
+    def encode(self, flat):
+        pos = np.searchsorted(self.keys, flat)
+        hit = self.keys[np.minimum(pos, self.keys.size - 1)] == flat
+        if not hit.all():
+            new = np.unique(flat[~hit])
+            keys = np.union1d(self.keys, new)
+            if keys.size > self.cap:
+                return None
+            self.keys = keys
+            pos = np.searchsorted(self.keys, flat)
+        return pos
+
+    def table(self):
+        t = np.zeros(self.cap, self.keys.dtype)
+        t[:self.keys.size] = self.keys
+        return t
+
+
+#: the process's codebooks: they only grow, so a worker's jobs share one
+#: key set and every job ships its whole table (the decode is stateless)
+_qual_codes = _SortedCodeCache(256, np.uint32)
+_base_codes = _SortedCodeCache(_SYM_CAP, np.uint8)
+
+#: what a wire job holds in place of the five read planes and ``haps``
+WIRE_NAMES = ("qidx", "read_nib", "hap_nib", "cb", "sym_tab")
+
+
+def _nibble_pack(syms):
+    return (syms[:, 0::2] | (syms[:, 1::2] << 4)).astype(np.uint8)
+
+
+def _compress_dispatch(arrays: dict, wire: bool) -> tuple:
+    """(mode, arrays): ``"wire"`` replaces the five u8 read planes and
+    ``haps`` with u8 ``qidx`` [rows, Rpad] (each lane's codebook index),
+    ``read_nib`` [rows, Rpad / 2] and ``hap_nib`` [n_haps, Hpad / 2]
+    (symbol nibbles, lane 2j in the low half of byte j; Hpad is ``haps``'
+    width rounded up to even), u32 ``cb`` [256] (the (q, iq, dq, gcp) tuple
+    of a lane as one little-endian word, q in the low byte) and u8
+    ``sym_tab`` [16]; the tables and the lengths stay as they are.
+    ``"flat"`` returns ``arrays`` unchanged: when ``wire`` is false, or when
+    the batch's values overflow the 16 symbols or 256 tuples the process's
+    caches can hold.  Pad lanes and rows are zero and encode to code 0 /
+    symbol 0 (both caches hold key 0 at index 0)."""
+    if not wire:
+        return "flat", arrays
+    reads, haps = arrays["read_u8"], arrays["haps"]
+    rows, rpad = reads.shape
+    n_haps, hmax = haps.shape
+    hpad = hmax + (hmax & 1)
+    sy = _base_codes.encode(np.concatenate([reads.ravel(), haps.ravel()]))
+    if sy is None:
+        return "flat", arrays
+    hap_sy = np.zeros((n_haps, hpad), np.uint8)
+    hap_sy[:, :hmax] = sy[reads.size:].reshape(n_haps, hmax)
+    # (q, iq, dq, gcp) tuples as one u32 view: interleave once, no
+    # per-plane u32 temporaries
+    tup = np.ascontiguousarray(np.stack(
+        [arrays["quals"], arrays["ins_q"], arrays["del_q"], arrays["gcp_q"]],
+        axis=-1)).view(np.uint32)[..., 0]
+    qc = _qual_codes.encode(tup.ravel())
+    if qc is None:
+        return "flat", arrays
+    out = {k: v for k, v in arrays.items() if k not in (*_PLANES, "haps")}
+    out.update(
+        qidx=qc.astype(np.uint8).reshape(rows, rpad),
+        read_nib=_nibble_pack(sy[:reads.size].astype(np.uint8)
+                              .reshape(rows, rpad)),
+        hap_nib=_nibble_pack(hap_sy), cb=_qual_codes.table(),
+        sym_tab=_base_codes.table())
+    return "wire", out

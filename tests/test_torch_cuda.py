@@ -181,6 +181,68 @@ def test_kernel_rejects_bad_inputs(cuda):
         pc.pairhmm_grouped_cuda(t)
 
 
+@pytest.mark.parametrize("odd_hmax", [False, True], ids=["even", "odd"])
+def test_wire_decode_kernel_matches_plain_version(cuda, odd_hmax):
+    """The wire decode on the card gives the plain version's planes byte
+    for byte, and they are the flat job's (``haps`` one zero column wider
+    when the widest haplotype is odd); one launch.  The grouped kernel on a
+    wire job enqueued on a side stream gives the flat job's values bit for
+    bit, one decode and one K2 launch."""
+    from lorikeet_tpu_torch.ops import pairhmm_pack as pk
+    rng = np.random.default_rng(79 + odd_hmax)
+    # qualities from a few values, so that the (q, iq, dq, gcp) tuples fit
+    # the 256-entry codebook (the random ones of _region do not)
+    few, pairs = {}, []
+    for hap, read, *_ in _region(rng, 100) + _region(rng, 250, 9, 3):
+        if id(read) not in few:
+            q = rng.choice([10, 20, 30, 40], len(read)).astype(np.uint8)
+            iq = rng.choice([40, 45], len(read)).astype(np.uint8)
+            few[id(read)] = (read, q, iq, iq, np.full(len(read), 10, np.uint8))
+        pairs.append((hap, *few[id(read)]))
+    hmax = max(len(p[0]) for p in pairs)
+    if hmax % 2 != odd_hmax:
+        pairs.append((BASES[rng.integers(0, 4, hmax + 1)],) + pairs[0][1:])
+    flat, out_pos = pk.prepare_grouped_jobs(pairs, wire=False)
+    wire, _ = pk.prepare_grouped_jobs(pairs, wire=True)
+    width = flat["haps"].shape[1]
+    assert wire["mode"] == "wire" and width % 2 == odd_hmax
+    t = pc.to_tensors(wire, cuda)
+    launches = pc.WIRE_LAUNCHES
+    got = pc.wire_decode_cuda(t)
+    torch.cuda.synchronize()
+    assert pc.WIRE_LAUNCHES == launches + 1
+    want = pc.wire_decode_torch(t)
+    assert got.keys() == want.keys()
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+    for name in pc._PLANES:
+        np.testing.assert_array_equal(got[name].cpu().numpy(), flat[name])
+    haps = got["haps"].cpu().numpy()
+    assert haps.shape[1] == width + odd_hmax
+    np.testing.assert_array_equal(haps[:, :width], flat["haps"])
+    assert not haps[:, width:].any()
+    values = pc.pairhmm_forward_grouped(pairs, cuda, wire=False)
+    launches, k2 = pc.WIRE_LAUNCHES, pc.LAUNCHES
+    got = pc.readback_grouped(pc.enqueue_grouped_jobs(
+        wire, out_pos, [cuda], [torch.cuda.Stream(cuda)]))
+    assert pc.WIRE_LAUNCHES == launches + 1 and pc.LAUNCHES == k2 + 1
+    assert got.dtype == np.float64 and np.array_equal(got, values)
+
+
+def test_wire_decode_rejects_bad_inputs(cuda):
+    from lorikeet_tpu_torch.ops import pairhmm_pack as pk
+    pairs = _region(np.random.default_rng(3), 80, 3, 2)
+    wire, _ = pk.prepare_grouped_jobs(pairs, wire=True)
+    t = pc.to_tensors(wire, cuda)
+    t["cb"] = t["cb"][:255].contiguous()
+    with pytest.raises(ValueError, match="shape"):
+        pc.wire_decode_cuda(t)
+    t = pc.to_tensors(wire, cuda)
+    t["qidx"] = t["qidx"].to(torch.int32)
+    with pytest.raises(ValueError, match="qidx"):
+        pc.wire_decode_cuda(t)
+
+
 def _flat_pair(rng, read_len, hap_len):
     hap = BASES[rng.integers(0, 5 if hap_len > 8 else 4, hap_len)]
     if read_len <= hap_len:

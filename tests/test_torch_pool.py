@@ -156,7 +156,8 @@ def test_device_service_runs_every_batch(genome80, serial80_plain,
     assert _key(pooled.calls) == _key(serial.calls) and serial.calls
     assert pooled.depth_pass_rle == serial.depth_pass_rle
     # one span: its one pair batch ran in the service, none on a host
-    assert tlk.DISPATCH_COUNTS == {"device": 0, "host": 0, "remote": 1}
+    assert tlk.DISPATCH_COUNTS == {"device": 0, "host": 0, "remote": 1,
+                                   "local": 0}
     assert pool_mod.WORKER_COUNTS["lk_batches"] == 1
     if sw_on_card:
         # every SW pair the serial run sent to the plain version went
@@ -400,6 +401,85 @@ def test_failed_service_fails_the_run(genome80, plain_devices, monkeypatch,
             pool_mod.WORKER_COUNTS, 0)
     finally:
         pool_mod.shutdown_pool()
+
+
+def _jax_f64_calls(fasta, bams):
+    jcfg = jengine.CallerConfig(use_pallas=False)
+    return jcall_contig(JFastaReader(fasta), [jopen_bam(p) for p in bams],
+                        "contig1", jcfg,
+                        jengine.HaplotypeCallerEngine(jcfg)).calls
+
+
+@pytest.mark.parametrize("setting, form", [
+    ("1", "wire"), ("0", "flat"), (None, "flat")],
+    ids=["forced_on", "forced_off", "auto_no_card"])
+def test_wire_jobs_give_the_serial_and_jax_calls(genome80, serial80_plain,
+                                                 plain_devices, monkeypatch,
+                                                 setting, form):
+    """The workers pack in the form the parent's gate gives them
+    (LORIKEET_WIRE_COMPRESS; under auto the parent's link, which a process
+    without a card does not have: flat), and the service decodes a wire
+    job on the device before the sweep: the calls are the serial run's on
+    the same (plain) kernels exactly, and the JAX package's f64 run's with
+    QUAL within compare's 0.1 (same sites, alleles and genotypes)."""
+    fasta, bams, _ = genome80
+    serial, _ = serial80_plain
+    if setting is None:
+        monkeypatch.delenv("LORIKEET_WIRE_COMPRESS", raising=False)
+    else:
+        monkeypatch.setenv("LORIKEET_WIRE_COMPRESS", setting)
+    monkeypatch.setattr(pairhmm_cuda, "WIRE_COUNTS", {"wire": 0, "flat": 0})
+    jobs = []
+    real = pairhmm_cuda.enqueue_grouped_jobs
+    monkeypatch.setattr(pairhmm_cuda, "enqueue_grouped_jobs",
+                        lambda a, *r: jobs.append(a["mode"]) or real(a, *r))
+    cfg = CallerConfig(use_cuda=True, threads=2)
+    try:
+        pooled, pool = _pooled(fasta, bams, cfg, device_service=True)
+    finally:
+        pool_mod.shutdown_pool()
+    assert _key(pooled.calls) == _key(serial.calls) and serial.calls
+    # one batch, one job in the gate's form
+    assert jobs == [form] and pool.wire == (form == "wire")
+    assert pairhmm_cuda.WIRE_COUNTS == {"wire": form == "wire",
+                                        "flat": form == "flat"}
+    jax = _jax_f64_calls(fasta, bams)
+    assert [k[:4] for k in _key(jax)] == [k[:4] for k in _key(pooled.calls)]
+    assert max(abs(a[4] - b[4]) * 10 for a, b in zip(
+        _key(jax), _key(pooled.calls))) <= 0.1
+
+
+@pytest.mark.parametrize("route", ["remote_local", "pallas_host"])
+def test_batches_kept_on_the_worker_host(genome80, plain_devices,
+                                         monkeypatch, route):
+    """LORIKEET_REMOTE_ROUTE=local: the workers send no pair batch and
+    compute each on their own f64 host kernel; LORIKEET_PALLAS_ROUTE=host
+    (the parent's router): the service replies "local" to each batch and
+    the worker computes it so.  Either way the calls are the serial f64
+    run's, and no K2 launch is made for them."""
+    fasta, bams, _ = genome80
+    if route == "remote_local":
+        monkeypatch.setenv("LORIKEET_REMOTE_ROUTE", "local")
+    else:
+        monkeypatch.setattr(tlk, "_ROUTE_MODE", "host")
+    serial = _serial(fasta, bams, CallerConfig(use_cuda=False))
+    tlk.DISPATCH_COUNTS.update(dict.fromkeys(tlk.DISPATCH_COUNTS, 0))
+    cards = []
+    real = pairhmm_cuda.pairhmm_grouped_cuda
+    monkeypatch.setattr(pairhmm_cuda, "pairhmm_grouped_cuda",
+                        lambda t, card=0: cards.append(card) or real(t, card))
+    cfg = CallerConfig(use_cuda=True, threads=2)
+    try:
+        pooled, pool = _pooled(fasta, bams, cfg, device_service=True)
+    finally:
+        pool_mod.shutdown_pool()
+    assert _key(pooled.calls) == _key(serial.calls) and serial.calls
+    assert tlk.DISPATCH_COUNTS == {"device": 0, "host": 1, "remote": 0,
+                                   "local": 1}
+    assert pool_mod.WORKER_COUNTS["lk_batches"] == (route == "pallas_host")
+    assert cards == []
+    reports = list(pool_mod.WORKER_REPORTS.values())
+    assert reports and not any(r["torch_imported"] for r in reports)
 
 
 def test_pooled_start_engine_vcf_equals_jax(genome260, tmp_path,
