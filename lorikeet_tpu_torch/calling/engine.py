@@ -30,6 +30,7 @@ from lorikeet_tpu_torch.models.genotype_alleles import (
     genotype_count_matrix, genotype_likelihoods_from_read_matrix,
 )
 from lorikeet_tpu_torch.models.variants import Allele, Genotype, VariantContext
+from lorikeet_tpu_torch.utils import progress as _prog
 from lorikeet_tpu_torch.utils.math import log10_one_minus_pow10
 
 ALLELE_INFORMATIVE_READS_OVERLAP_MARGIN = 2
@@ -375,7 +376,6 @@ def compute_works_likelihoods(engine: "HaplotypeCallerEngine",
     the GIL, so running this on a worker thread overlaps with host region
     preparation of the next span)."""
     from lorikeet_tpu_torch.calling.likelihoods import compute_pair_likelihoods
-    from lorikeet_tpu_torch.utils import progress as _prog
     all_pairs = [p for w in works for p in w.pairs]
     with _prog.global_stage("pairhmm"):
         return compute_pair_likelihoods(all_pairs, engine.cfg.use_cuda)
@@ -686,14 +686,15 @@ class HaplotypeCallerEngine:
             # clipping, overlapping mate-pair qual correction
             # (finalize_regions, assembly_based_caller_utils.rs:97)
             from lorikeet_tpu_torch.calling.clipping import finalize_region_reads
-            reads_by_sample = finalize_region_reads(
-                reads_by_sample, window_start,
-                window_start + len(ref_window) - 1,
-                min_base_quality=self.cfg.min_base_quality,
-                dont_use_soft_clipped_bases=
-                self.cfg.dont_use_soft_clipped_bases,
-                soft_clip_low_quality_ends=
-                self.cfg.soft_clip_low_quality_ends)
+            with _prog.substage("finalize"):
+                reads_by_sample = finalize_region_reads(
+                    reads_by_sample, window_start,
+                    window_start + len(ref_window) - 1,
+                    min_base_quality=self.cfg.min_base_quality,
+                    dont_use_soft_clipped_bases=
+                    self.cfg.dont_use_soft_clipped_bases,
+                    soft_clip_low_quality_ends=
+                    self.cfg.soft_clip_low_quality_ends)
         # second mapq gate before assembly/genotyping
         # (haplotype_caller_engine.rs:1272 filter_non_passing_reads)
         mq_gate = self.cfg.mapping_quality_threshold_for_genotyping
@@ -703,119 +704,124 @@ class HaplotypeCallerEngine:
                 for s, reads in reads_by_sample.items()}
         if not any(reads_by_sample.values()):
             return None
-        haplotypes = assemble_region(
-            ref_window, reads_by_sample,
-            kmer_sizes=self.cfg.kmer_sizes,
-            min_base_quality=self.cfg.min_base_quality,
-            prune_factor=self.cfg.prune_factor,
-            disable_prune_correction=self.cfg.disable_prune_factor_correction,
-            num_pruning_samples=self.cfg.num_pruning_samples,
-            max_paths=self.cfg.max_allowed_path_for_read_threading_assembler,
-            use_adaptive_pruning=self.cfg.use_adaptive_pruning,
-            initial_error_rate_for_pruning=self.cfg.initial_error_rate_for_pruning,
-            pruning_log_odds_threshold=self.cfg.pruning_log_odds_threshold,
-            pruning_seeding_log_odds_threshold=self.cfg.pruning_seeding_log_odds_threshold,
-            max_unpruned_variants=self.cfg.max_unpruned_variants,
-            allow_kmer_extension=not self.cfg.dont_increase_kmer_sizes_for_cycles,
-            allow_non_unique_kmers_in_ref=self.cfg.allow_non_unique_kmers_in_ref,
-            recover_dangling_branches=self.cfg.recover_dangling_branches,
-            recover_all_dangling_branches=self.cfg.recover_all_dangling_branches,
-            min_dangling_branch_length=self.cfg.min_dangling_branch_length,
-            min_matching_bases=self.cfg.min_matching_bases_to_dangling_end_recovery,
-            activity_density=(0.0 if self.cfg.disable_automatic_kmer_adjustment
-                              else activity_density),
-            dot_path=self.cfg.graph_output,
-            dot_prefix=f"tid{tid}_pos{window_start}_")
+        # the graph build, its k-best paths and the haplotypes' CIGARs
+        with _prog.substage("assemble"):
+            haplotypes = assemble_region(
+                ref_window, reads_by_sample,
+                kmer_sizes=self.cfg.kmer_sizes,
+                min_base_quality=self.cfg.min_base_quality,
+                prune_factor=self.cfg.prune_factor,
+                disable_prune_correction=self.cfg.disable_prune_factor_correction,
+                num_pruning_samples=self.cfg.num_pruning_samples,
+                max_paths=self.cfg.max_allowed_path_for_read_threading_assembler,
+                use_adaptive_pruning=self.cfg.use_adaptive_pruning,
+                initial_error_rate_for_pruning=self.cfg.initial_error_rate_for_pruning,
+                pruning_log_odds_threshold=self.cfg.pruning_log_odds_threshold,
+                pruning_seeding_log_odds_threshold=self.cfg.pruning_seeding_log_odds_threshold,
+                max_unpruned_variants=self.cfg.max_unpruned_variants,
+                allow_kmer_extension=not self.cfg.dont_increase_kmer_sizes_for_cycles,
+                allow_non_unique_kmers_in_ref=self.cfg.allow_non_unique_kmers_in_ref,
+                recover_dangling_branches=self.cfg.recover_dangling_branches,
+                recover_all_dangling_branches=self.cfg.recover_all_dangling_branches,
+                min_dangling_branch_length=self.cfg.min_dangling_branch_length,
+                min_matching_bases=self.cfg.min_matching_bases_to_dangling_end_recovery,
+                activity_density=(0.0 if self.cfg.disable_automatic_kmer_adjustment
+                                  else activity_density),
+                dot_path=self.cfg.graph_output,
+                dot_prefix=f"tid{tid}_pos{window_start}_")
         if len(haplotypes) <= 1 and not given_alleles:
             return None
 
-        hap_events = [build_event_map(h, ref_window, window_start,
-                                      self.cfg.max_mnp_distance)
-                      for h in haplotypes]
-        if given_alleles:
-            from lorikeet_tpu_torch.calling.given_alleles import add_given_haplotypes
-            add_given_haplotypes(haplotypes, hap_events, ref_window,
-                                 window_start, given_alleles,
-                                 self.cfg.max_mnp_distance)
-            if len(haplotypes) <= 1:
-                return None
+        with _prog.substage("events"):
+            hap_events = [build_event_map(h, ref_window, window_start,
+                                          self.cfg.max_mnp_distance)
+                          for h in haplotypes]
+            if given_alleles:
+                from lorikeet_tpu_torch.calling.given_alleles import add_given_haplotypes
+                add_given_haplotypes(haplotypes, hap_events, ref_window,
+                                     window_start, given_alleles,
+                                     self.cfg.max_mnp_distance)
+        if given_alleles and len(haplotypes) <= 1:
+            return None
 
         # trim to the variation span before the pair-HMM
         # (assembly_region_trimmer.rs:61-130: snp padding 20, indel 75)
-        all_events = [vc for ev in hap_events for vc in ev.values()]
-        in_active = [vc for vc in all_events
-                     if vc.start <= active_end and vc.end >= active_start]
-        if not in_active:
-            if not self.cfg.disable_optimizations:
-                return None
-            # keep the whole window live (haplotype_caller_engine.rs:1227)
-            in_active = all_events
+        with _prog.substage("trim"):
+            all_events = [vc for ev in hap_events for vc in ev.values()]
+            in_active = [vc for vc in all_events
+                         if vc.start <= active_end and vc.end >= active_start]
             if not in_active:
-                return None
-        # per-variant padding: SNPs get snp padding; indels get indel
-        # padding, or str padding + the longest tandem-repeat run when the
-        # site is repeat-decomposable (assembly_region_trimmer.rs:96-117)
-        from lorikeet_tpu_torch.utils.repeats import vc_tandem_repeat_units
-        ref_bytes = np.asarray(ref_window, np.uint8).tobytes()
-
-        def _padding(vc):
-            if vc.start == vc.end and all(len(a.bases) == 1
-                                          for a in vc.alleles
-                                          if not a.is_symbolic):
-                return self.cfg.snp_padding_for_genotyping
-            repeats = vc_tandem_repeat_units(vc, ref_bytes, window_start)
-            if repeats is not None:
-                counts, unit = repeats
-                return (self.cfg.str_padding_for_genotyping
-                        + max(counts) * len(unit))
-            return self.cfg.indel_padding_for_genotyping
-
-        pad_lo = min(vc.start - _padding(vc) for vc in in_active)
-        pad_hi = max(vc.end + _padding(vc) for vc in in_active)
-        pad_lo = max(pad_lo, window_start)
-        pad_hi = min(pad_hi, window_start + len(ref_window) - 1)
-        reads_by_sample = {
-            s: [r for r in reads
-                if r.pos <= pad_hi and r.reference_end > pad_lo]
-            for s, reads in reads_by_sample.items()}
-        if not any(reads_by_sample.values()):
-            return None
-
-        # trim haplotypes + reads to the variant span before the pair-HMM
-        # (haplotype_caller_engine.rs:1243 trim_to + read-stub removal
-        # :1250-1260): shrinks the DP problem to the variation window
-        if not self.cfg.dont_trim_active_regions and (
-                pad_lo > window_start
-                or pad_hi < window_start + len(ref_window) - 1):
-            trimmed = trim_haplotypes_to_span(haplotypes, pad_lo, pad_hi,
-                                              window_start)
-            if trimmed is not None and len(trimmed) > 1:
-                haplotypes = trimmed
-                off = pad_lo - window_start
-                ref_window = ref_window[off:pad_hi - window_start + 1]
-                window_start = pad_lo
-                hap_events = [build_event_map(h, ref_window, window_start,
-                                              self.cfg.max_mnp_distance)
-                              for h in haplotypes]
-                from lorikeet_tpu_torch.calling.clipping import hard_clip_to_region
-                reads_by_sample = {
-                    s: [c for c in (hard_clip_to_region(r, pad_lo, pad_hi)
-                                    for r in reads)
-                        if len(c.seq) >= MINIMUM_READ_LENGTH_AFTER_TRIMMING]
-                    for s, reads in reads_by_sample.items()}
-                if not any(reads_by_sample.values()):
+                if not self.cfg.disable_optimizations:
                     return None
+                # keep the whole window live (haplotype_caller_engine.rs:1227)
+                in_active = all_events
+                if not in_active:
+                    return None
+            # per-variant padding: SNPs get snp padding; indels get indel
+            # padding, or str padding + the longest tandem-repeat run when the
+            # site is repeat-decomposable (assembly_region_trimmer.rs:96-117)
+            from lorikeet_tpu_torch.utils.repeats import vc_tandem_repeat_units
+            ref_bytes = np.asarray(ref_window, np.uint8).tobytes()
+
+            def _padding(vc):
+                if vc.start == vc.end and all(len(a.bases) == 1
+                                              for a in vc.alleles
+                                              if not a.is_symbolic):
+                    return self.cfg.snp_padding_for_genotyping
+                repeats = vc_tandem_repeat_units(vc, ref_bytes, window_start)
+                if repeats is not None:
+                    counts, unit = repeats
+                    return (self.cfg.str_padding_for_genotyping
+                            + max(counts) * len(unit))
+                return self.cfg.indel_padding_for_genotyping
+
+            pad_lo = min(vc.start - _padding(vc) for vc in in_active)
+            pad_hi = max(vc.end + _padding(vc) for vc in in_active)
+            pad_lo = max(pad_lo, window_start)
+            pad_hi = min(pad_hi, window_start + len(ref_window) - 1)
+            reads_by_sample = {
+                s: [r for r in reads
+                    if r.pos <= pad_hi and r.reference_end > pad_lo]
+                for s, reads in reads_by_sample.items()}
+            if not any(reads_by_sample.values()):
+                return None
+
+            # trim haplotypes + reads to the variant span before the pair-HMM
+            # (haplotype_caller_engine.rs:1243 trim_to + read-stub removal
+            # :1250-1260): shrinks the DP problem to the variation window
+            if not self.cfg.dont_trim_active_regions and (
+                    pad_lo > window_start
+                    or pad_hi < window_start + len(ref_window) - 1):
+                trimmed = trim_haplotypes_to_span(haplotypes, pad_lo, pad_hi,
+                                                  window_start)
+                if trimmed is not None and len(trimmed) > 1:
+                    haplotypes = trimmed
+                    off = pad_lo - window_start
+                    ref_window = ref_window[off:pad_hi - window_start + 1]
+                    window_start = pad_lo
+                    hap_events = [build_event_map(h, ref_window, window_start,
+                                                  self.cfg.max_mnp_distance)
+                                  for h in haplotypes]
+                    from lorikeet_tpu_torch.calling.clipping import hard_clip_to_region
+                    reads_by_sample = {
+                        s: [c for c in (hard_clip_to_region(r, pad_lo, pad_hi)
+                                        for r in reads)
+                            if len(c.seq) >= MINIMUM_READ_LENGTH_AFTER_TRIMMING]
+                        for s, reads in reads_by_sample.items()}
+                    if not any(reads_by_sample.values()):
+                        return None
 
         from lorikeet_tpu_torch.calling.likelihoods import (PCR_INDEL_MODELS,
                                                       build_pairs)
-        pairs, index = build_pairs(
-            haplotypes, reads_by_sample,
-            pcr_rate_factor=PCR_INDEL_MODELS[self.cfg.pcr_indel_model],
-            gcp_value=self.cfg.pair_hmm_gcp,
-            base_quality_score_threshold=
-            self.cfg.base_quality_score_threshold,
-            disable_cap_to_mapq=
-            self.cfg.disable_cap_base_qualities_to_map_quality)
+        with _prog.substage("pairs"):
+            pairs, index = build_pairs(
+                haplotypes, reads_by_sample,
+                pcr_rate_factor=PCR_INDEL_MODELS[self.cfg.pcr_indel_model],
+                gcp_value=self.cfg.pair_hmm_gcp,
+                base_quality_score_threshold=
+                self.cfg.base_quality_score_threshold,
+                disable_cap_to_mapq=
+                self.cfg.disable_cap_base_qualities_to_map_quality)
         if not pairs:
             return None
         return RegionWork(window_start, active_start, active_end, tid,

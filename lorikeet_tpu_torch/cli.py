@@ -137,6 +137,14 @@ def _base_config(args):
 
 
 def main(argv=None) -> int:
+    """One command of the CLI; with spans on (utils.progress), the whole
+    command is the span ``call``, its genomes in its attributes."""
+    from lorikeet_tpu_torch.utils.progress import global_stage
+    with global_stage("call"):
+        return _main(argv)
+
+
+def _main(argv) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     _warn_inert_flags(args)
@@ -256,7 +264,7 @@ def main(argv=None) -> int:
     cfg = _caller_config(args)
     from lorikeet_tpu_torch.utils.progress import set_log_level
     from lorikeet_tpu_torch.processing import start_engine
-    from lorikeet_tpu_torch.utils.progress import maybe_profile
+    from lorikeet_tpu_torch.utils.progress import annotate, maybe_profile
     set_log_level(args.verbose, args.quiet)
     cfg.min_long_read_size = args.min_long_read_size
     cfg.min_long_read_average_base_qual = args.min_long_read_average_base_qual
@@ -277,6 +285,7 @@ def main(argv=None) -> int:
                                parallel_genomes=args.parallel_genomes,
                                split_bams=args.split_bams,
                                bam_cache_dir=args.bam_file_cache_directory)
+    annotate(genomes=sorted(results))
 
     for genome, out in results.items():
         if out.get("cached") or "vcf" not in out:

@@ -57,6 +57,7 @@ from lorikeet_tpu_torch.ops.pairhmm import TRISTATE_CORRECTION
 from lorikeet_tpu_torch.ops.pairhmm_pack import (  # noqa: F401
     GROUP_BLOCK_B, WIRE_NAMES, _PLANES, _round_up, prepare_grouped_jobs,
 )
+from lorikeet_tpu_torch.utils.progress import global_stage
 
 # One-hot base-bit encoding.  The N-aware base match ((r == h) | r == N |
 # h == N) collapses to one AND + compare when every base maps to a bit and N
@@ -490,43 +491,45 @@ def enqueue_grouped_jobs(arrays: dict, out_pos: np.ndarray, devices,
     the plain versions run at once.  Returns the handle that
     :func:`readback_grouped` waits on."""
     from lorikeet_tpu_torch.parallel.hosts import even_shares
-    devices = device_list(devices)
-    streams = streams or [None] * len(devices)
-    mode = arrays.get("mode", "flat")
-    WIRE_COUNTS[mode] += 1
-    nblocks = arrays["tile_tab"].size
-    shares = []
-    host = None
-    for card, (device, stream, (lo, hi)) in enumerate(zip(
-            devices, streams, even_shares(nblocks, len(devices)))):
-        if hi == lo:
-            continue
-        share = {**arrays, "tile_tab": arrays["tile_tab"][lo:hi],
-                 "hap_tab": arrays["hap_tab"][lo:hi]}
-        if device.type == "cpu":
-            shares.append((pairhmm_grouped_cuda(
-                _planes(to_tensors(share, device)), card), None))
-            continue
-        if host is None:
-            host = {k: _tensor(v).pin_memory() for k, v in arrays.items()
-                    if isinstance(v, np.ndarray)}
-            host["base_bits"] = torch.from_numpy(_BASE_BITS).pin_memory()
-        stream = stream or torch.cuda.current_stream(device)
-        # the kernels launch on the current stream of the current device:
-        # the copies, the decode, the launch and the copy back must all be
-        # issued under this device and this stream, or one could race the
-        # next
-        with torch.cuda.device(device), torch.cuda.stream(stream):
-            t = {k: (v[lo:hi] if k in ("tile_tab", "hap_tab") else v)
-                 .to(device, non_blocking=True) for k, v in host.items()}
-            t["mode"] = mode
-            vals = pairhmm_grouped_cuda(_planes(t), card)
-            out = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
-            out.copy_(vals, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(stream)
-        shares.append((out, done))
-    return shares, out_pos
+    # the pinning, the copies in, the launches and the copies out, enqueued
+    with global_stage("k2.enqueue"):
+        devices = device_list(devices)
+        streams = streams or [None] * len(devices)
+        mode = arrays.get("mode", "flat")
+        WIRE_COUNTS[mode] += 1
+        nblocks = arrays["tile_tab"].size
+        shares = []
+        host = None
+        for card, (device, stream, (lo, hi)) in enumerate(zip(
+                devices, streams, even_shares(nblocks, len(devices)))):
+            if hi == lo:
+                continue
+            share = {**arrays, "tile_tab": arrays["tile_tab"][lo:hi],
+                     "hap_tab": arrays["hap_tab"][lo:hi]}
+            if device.type == "cpu":
+                shares.append((pairhmm_grouped_cuda(
+                    _planes(to_tensors(share, device)), card), None))
+                continue
+            if host is None:
+                host = {k: _tensor(v).pin_memory() for k, v in arrays.items()
+                        if isinstance(v, np.ndarray)}
+                host["base_bits"] = torch.from_numpy(_BASE_BITS).pin_memory()
+            stream = stream or torch.cuda.current_stream(device)
+            # the kernels launch on the current stream of the current device:
+            # the copies, the decode, the launch and the copy back must all be
+            # issued under this device and this stream, or one could race the
+            # next
+            with torch.cuda.device(device), torch.cuda.stream(stream):
+                t = {k: (v[lo:hi] if k in ("tile_tab", "hap_tab") else v)
+                     .to(device, non_blocking=True) for k, v in host.items()}
+                t["mode"] = mode
+                vals = pairhmm_grouped_cuda(_planes(t), card)
+                out = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
+                out.copy_(vals, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(stream)
+            shares.append((out, done))
+        return shares, out_pos
 
 
 def readback_grouped(handle: tuple) -> np.ndarray:
@@ -534,11 +537,12 @@ def readback_grouped(handle: tuple) -> np.ndarray:
     share, joined in block order, then each pair's value (f32 as
     float64)."""
     shares, out_pos = handle
-    for _, done in shares:
-        if done is not None:
-            done.synchronize()
-    flat = torch.cat([out for out, _ in shares]).numpy()
-    return flat[out_pos].astype(np.float64)
+    with global_stage("k2.readback"):
+        for _, done in shares:
+            if done is not None:
+                done.synchronize()
+        flat = torch.cat([out for out, _ in shares]).numpy()
+        return flat[out_pos].astype(np.float64)
 
 
 # ---- flat: one row per pair ----

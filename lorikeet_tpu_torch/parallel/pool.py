@@ -50,7 +50,8 @@ one of them covers a site.  So a contig's calls at any ``-t`` are those of
 
 Workers' counters cross back with each result (pair batches run on a
 worker's host, those of them kept local, ESCALATIONS, GLOBAL_STAGES
-seconds, requests sent) and the parent adds them to its own; LAUNCHES,
+seconds, the spans recorded since the last result, requests sent) and the
+parent adds them to its own; LAUNCHES,
 CARD_LAUNCHES, WIRE_LAUNCHES, WIRE_COUNTS, SW_LAUNCHES, SW_COUNTS and
 DISPATCH_COUNTS["remote"] move in the parent, where the service runs the
 kernels.
@@ -120,6 +121,8 @@ def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire):
     from lorikeet_tpu_torch.processing import _call_span
     from lorikeet_tpu_torch.utils import progress
 
+    progress.WORKER = wid
+    stage = progress.global_stage
     on_card = rpc_conn is not None and cfg.use_cuda is not False
     if on_card:
         from lorikeet_tpu_torch.ops.pairhmm_pack import prepare_grouped_jobs
@@ -149,9 +152,13 @@ def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire):
                     "LORIKEET_EAGER_BAM_MAX", str(256 * 1024 * 1024)))
                 if total > threshold:
                     streaming = True
-            state = (FastaReader(fasta_path),
-                     [open_bam(p, high_memory=high_mem, streaming=streaming)
-                      for p in bam_paths])
+            # the FASTA's index and each BAM inflated, its header read (its
+            # records are parsed at their first use, in the span's profile)
+            with stage("bam_open", bams=len(bam_paths)):
+                state = (FastaReader(fasta_path),
+                         [open_bam(p, high_memory=high_mem,
+                                   streaming=streaming)
+                          for p in bam_paths])
             readers[key] = state
         return state
 
@@ -159,15 +166,13 @@ def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire):
         """A batch on this worker's f64 host kernel, by its own router's
         verdict or the service's "local" reply (counted as both "host" and
         "local")."""
-        t0 = time.perf_counter()
         L.DISPATCH_COUNTS["local"] += 1
-        lks = L.compute_pair_likelihoods(pairs, use_cuda=False)
-        _add_stage("pairhmm", time.perf_counter() - t0)
-        return lks
+        with stage("lk.local", into="pairhmm"):
+            return L.compute_pair_likelihoods(pairs, use_cuda=False)
 
     def _service(kind, payload):
         """One request to the parent's device service and its reply."""
-        rpc_conn.send((kind, payload))
+        rpc_conn.send((kind, payload, None))
         return _reply()
 
     def _reply():
@@ -198,11 +203,6 @@ def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire):
         realign.DEVICE_SW_BATCH = _device_sw
         processing.DEVICE_ACTIVITY = _device_activity
 
-    def _add_stage(name, seconds):
-        acc = progress.GLOBAL_STAGES
-        if acc is not None:
-            acc[name] = acc.get(name, 0.0) + seconds
-
     def _put(tid, res, engine):
         geno = engine.genotyping
         res = (res, geno.deletion_checks, geno._upstream_dels)
@@ -210,7 +210,8 @@ def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire):
         counters = {"host": L.DISPATCH_COUNTS["host"],
                     "local": L.DISPATCH_COUNTS["local"],
                     "escalations": dict(PH.ESCALATIONS),
-                    "stages": stages, **sent}
+                    "stages": stages, "spans": progress.take_spans(),
+                    **sent}
         L.DISPATCH_COUNTS["host"] = L.DISPATCH_COUNTS["local"] = 0
         PH.ESCALATIONS.update(dict.fromkeys(PH.ESCALATIONS, 0))
         sent.update(dict.fromkeys(sent, 0))
@@ -226,45 +227,52 @@ def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire):
                 m for m in sys.modules if m.split(".")[0] in _FOREIGN)}
         result_q.put((tid, "ok", (res, counters)))
 
-    def _genotype_and_put(tid, res, engine, works, lks):
-        for calls in call_regions_batched(engine, works, lks) if works \
-                else []:
-            res.calls.extend(calls)
-        _put(tid, res, engine)
+    def _genotype(res, engine, works, lks):
+        if works:
+            with stage("genotype"):
+                for calls in call_regions_batched(engine, works, lks):
+                    res.calls.extend(calls)
 
     # ---- async span pipeline (pair-HMM on the parent's card) -------------
     # pack span N's pair batch here, ship it to the parent's card, prepare
     # span N+1 while it computes, then check + genotype N on the reply.
+    # With spans on, span N's end (the reply, the check, the genotyping)
+    # is the span ``worker.finish`` of its tid, inside whatever this worker
+    # runs then.
     pending = None                 # (tid, res, engine, works, seconds)
 
     def _finish(p):
         tid2, res2, engine2, works2, spent = p
         try:
-            t0 = time.perf_counter()
-            status, payload = rpc_conn.recv()
-            waited = time.perf_counter() - t0
-            pairs = [pp for w in works2 for pp in w.pairs]
-            if status == "ok":
-                if L._learning():
-                    # the worker's real cost of a remote batch: the pack
-                    # and send, plus the time it ends up blocked on the
-                    # reply (a fully overlapped batch costs only the
-                    # send); rem_lat is the router's separate additive
-                    # term, not folded in here
-                    _, bytes_est, _ = L._batch_cost_inputs(pairs)
-                    L._update_perf("rem_bps", bytes_est,
-                                   spent + max(waited, 1e-4))
-                lks = PH.pairhmm_forward_checked(payload, pairs)
-                _add_stage("pairhmm", spent + time.perf_counter() - t0)
-            elif status == "local":
-                lks = _local_lks(pairs)
-            else:
-                raise RuntimeError(f"device service failed: {payload}")
-            _genotype_and_put(tid2, res2, engine2, works2, lks)
+            with stage("worker.finish", tid=tid2):
+                t0 = time.perf_counter()
+                with stage("lk.reply_wait", into="pairhmm"):
+                    status, payload = rpc_conn.recv()
+                waited = time.perf_counter() - t0
+                if status == "ok":
+                    with stage("lk.checked", into="pairhmm"):
+                        pairs = [pp for w in works2 for pp in w.pairs]
+                        if L._learning():
+                            # the worker's real cost of a remote batch: the
+                            # pack and send, plus the time it ends up
+                            # blocked on the reply (a fully overlapped batch
+                            # costs only the send); rem_lat is the router's
+                            # separate additive term, not folded in here
+                            _, bytes_est, _ = L._batch_cost_inputs(pairs)
+                            L._update_perf("rem_bps", bytes_est,
+                                           spent + max(waited, 1e-4))
+                        lks = PH.pairhmm_forward_checked(payload, pairs)
+                elif status == "local":
+                    lks = _local_lks([pp for w in works2 for pp in w.pairs])
+                else:
+                    raise RuntimeError(f"device service failed: {payload}")
+                _genotype(res2, engine2, works2, lks)
+            _put(tid2, res2, engine2)
         except Exception:  # noqa: BLE001 — surface to the parent
             result_q.put((tid2, "error", traceback.format_exc()))
 
     while True:
+        t_wait = time.perf_counter_ns()
         if pending is not None:
             try:
                 task = task_q.get_nowait()
@@ -274,59 +282,77 @@ def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire):
                 continue
         else:
             task = task_q.get()
-        if task is None:
+        if task[0] == "stop":
             if pending is not None:
                 _finish(pending)
                 pending = None
+            if task[1]:
+                # the spans since this worker's last result: the parent
+                # keeps them while it closes the pool
+                if progress.GLOBAL_STAGES is None:
+                    progress.GLOBAL_STAGES = {}
+                progress.add_span("worker.wait_task", t_wait)
+                result_q.put((None, "spans", progress.take_spans()))
             break
         tid, fasta_path, bam_paths, contig, sp, stages_on, carried = task
         if not stages_on:
             progress.GLOBAL_STAGES = None
         elif progress.GLOBAL_STAGES is None:
             progress.GLOBAL_STAGES = {}
-        # announce pickup so the parent can requeue this task if we die
-        # mid-span (crash tolerance; reference analogue: the per-genome
-        # try/continue of src/processing/lorikeet_engine.rs:100)
-        result_q.put((tid, "start", wid))
-        # a fresh engine per span, its genotyping state (upstream
-        # deletions) the one the parent carried in: the calls then never
-        # depend on which spans this worker ran before
-        engine = HaplotypeCallerEngine(cfg)
-        engine.genotyping._upstream_dels = list(carried)
-        engine.genotyping.deletion_checks = []
+        progress.add_span("worker.wait_task", t_wait)
         try:
-            fasta, bams = _readers_for(fasta_path, bam_paths)
-            if not on_card:
-                _put(tid, _call_span(fasta, bams, contig, cfg, engine, *sp),
-                     engine)
-                continue
-            res, works = _call_span(fasta, bams, contig, cfg, engine, *sp,
-                                    defer=True)
-            pairs = [p for w in works for p in w.pairs]
-            if pairs and L._route_remote(pairs):
-                t0 = time.perf_counter()
-                job = prepare_grouped_jobs(pairs, wire=wire)
-                spent = time.perf_counter() - t0
-                # drain the previous reply BEFORE sending the next request:
-                # a duplex pipe with a blocked send on BOTH ends (parent
-                # pushing reply N, worker pushing request N+1, each larger
-                # than the socket buffer) is a hard deadlock.  Overlap is
-                # unharmed: span N+1's host prep already ran while the card
-                # computed batch N; only the send moves.
-                if pending is not None:
-                    _finish(pending)
-                    pending = None
-                t0 = time.perf_counter()
-                rpc_conn.send(("lk", job))
-                sent["lk_batches"] += 1
-                pending = (tid, res, engine, works,
-                           spent + time.perf_counter() - t0)
-            else:
-                if pending is not None:
-                    _finish(pending)
-                    pending = None
-                _genotype_and_put(tid, res, engine, works,
+            done = None
+            with stage("worker.task", tid=tid, contig=contig, lo=sp[0],
+                       hi=sp[1]):
+                # announce pickup so the parent can requeue this task if we
+                # die mid-span (crash tolerance; reference analogue: the
+                # per-genome try/continue of lorikeet_engine.rs:100)
+                result_q.put((tid, "start", wid))
+                # a fresh engine per span, its genotyping state (upstream
+                # deletions) the one the parent carried in: the calls then
+                # never depend on which spans this worker ran before
+                engine = HaplotypeCallerEngine(cfg)
+                engine.genotyping._upstream_dels = list(carried)
+                engine.genotyping.deletion_checks = []
+                fasta, bams = _readers_for(fasta_path, bam_paths)
+                if not on_card:
+                    done = _call_span(fasta, bams, contig, cfg, engine, *sp)
+                else:
+                    res, works = _call_span(fasta, bams, contig, cfg,
+                                            engine, *sp, defer=True)
+                    pairs = [p for w in works for p in w.pairs]
+                    if pairs and L._route_remote(pairs):
+                        t0 = time.perf_counter()
+                        with stage("lk.pack", into="pairhmm"):
+                            job = prepare_grouped_jobs(pairs, wire=wire)
+                        spent = time.perf_counter() - t0
+                        # drain the previous reply BEFORE sending the next
+                        # request: a duplex pipe with a blocked send on
+                        # BOTH ends (parent pushing reply N, worker pushing
+                        # request N+1, each larger than the socket buffer)
+                        # is a hard deadlock.  Overlap is unharmed: span
+                        # N+1's host prep already ran while the card
+                        # computed batch N; only the send moves.
+                        if pending is not None:
+                            _finish(pending)
+                            pending = None
+                        t0 = time.perf_counter()
+                        with stage("lk.send", into="pairhmm"):
+                            rpc_conn.send(("lk", job, tid))
+                        sent["lk_batches"] += 1
+                        pending = (tid, res, engine, works,
+                                   spent + time.perf_counter() - t0)
+                    else:
+                        if pending is not None:
+                            _finish(pending)
+                            pending = None
+                        _genotype(res, engine, works,
                                   _local_lks(pairs) if pairs else None)
+                        done = res
+            # after the task's span has closed, so that it travels with
+            # its own result
+            if done is not None:
+                _put(tid, done, engine)
         except Exception:  # noqa: BLE001 — surface to the parent
             result_q.put((tid, "error", traceback.format_exc()))
             if pending is not None:
@@ -337,7 +363,7 @@ def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire):
                 _finish(pending)
                 pending = None
     if rpc_conn is not None:
-        rpc_conn.send(("bye", None))
+        rpc_conn.send(("bye", None, None))
 
 
 class SpanWorkerPool:
@@ -374,7 +400,8 @@ class SpanWorkerPool:
         self.workers = [self._spawn_worker() for _ in range(n_workers)]
         if device_service and self._conns:
             self._service_thread = threading.Thread(
-                target=self._serve_device, daemon=True)
+                target=self._serve_device, name="device-service",
+                daemon=True)
             self._service_thread.start()
 
     def _spawn_worker(self):
@@ -466,6 +493,7 @@ class SpanWorkerPool:
         from lorikeet_tpu_torch.parallel import pipeline
         from lorikeet_tpu_torch.parallel.sharding import get_devices
         from lorikeet_tpu_torch.processing import _activity_devices
+        from lorikeet_tpu_torch.utils.progress import annotate, global_stage
 
         streams = {}                       # (position, device) -> stream
         inflight = []                      # [(conn, handle)] in send order
@@ -489,7 +517,8 @@ class SpanWorkerPool:
 
         def reply(conn, msg):
             try:
-                conn.send(msg)
+                with global_stage("service.reply"):
+                    conn.send(msg)
             except OSError:
                 pass   # the worker died; gather requeues its span
 
@@ -521,7 +550,11 @@ class SpanWorkerPool:
                 continue
             for conn in ready:
                 try:
-                    kind, payload = conn.recv()
+                    # each request is (kind, payload, tid): the tid of the
+                    # worker's task for "lk", None for the others
+                    with global_stage("service.recv"):
+                        kind, payload, tid = conn.recv()
+                        annotate(kind=kind, tid=tid)
                 except (EOFError, OSError):
                     closed.add(conn)
                     continue
@@ -537,9 +570,13 @@ class SpanWorkerPool:
                     elif kind == "lk":
                         arrays, out_pos = payload
                         devices = get_devices()
-                        handle = PC.enqueue_grouped_jobs(
-                            arrays, out_pos, devices,
-                            [stream_of(i, d) for i, d in enumerate(devices)])
+                        # the call whatever wraps it (its own span is
+                        # k2.enqueue)
+                        with global_stage("service.enqueue", tid=tid):
+                            handle = PC.enqueue_grouped_jobs(
+                                arrays, out_pos, devices,
+                                [stream_of(i, d)
+                                 for i, d in enumerate(devices)])
                         inflight.append((conn, handle))
                         L.DISPATCH_COUNTS["remote"] += 1
                     elif kind == "act":
@@ -630,43 +667,60 @@ class SpanWorkerPool:
         (GenotypingEngine._covered_by_upstream_deletion).  The workers ran
         each span from no deletions; where the carried ones cover a site
         that span is run again starting from them."""
+        from lorikeet_tpu_torch.utils.progress import global_stage
         tasks = [self._tasks[t] for t in task_ids]
         parts = []
         carried = []
-        for task, (res, checks, left) in zip(tasks, self.gather(task_ids)):
-            kept, covered = carry_deletions(carried, checks)
-            if covered:
-                SPAN_RERUNS["spans"] += 1
-                _, fasta_path, bam_paths, contig, span = task[:5]
-                rerun = self.submit(contig, span, fasta_path, bam_paths,
-                                    carried)
-                ((res, _, carried),) = self.gather([rerun])
-            else:
-                carried = kept + left
-            parts.append(res)
+        with global_stage("pool.gather", contig=tasks[0][3] if tasks
+                          else None, tids=list(task_ids)):
+            for task, (res, checks, left) in zip(tasks,
+                                                 self.gather(task_ids)):
+                kept, covered = carry_deletions(carried, checks)
+                if covered:
+                    SPAN_RERUNS["spans"] += 1
+                    _, fasta_path, bam_paths, contig, span = task[:5]
+                    rerun = self.submit(contig, span, fasta_path, bam_paths,
+                                        carried)
+                    ((res, _, carried),) = self.gather([rerun])
+                else:
+                    carried = kept + left
+                parts.append(res)
         return parts
 
     def close(self):
+        """Stop the workers and the service.  With spans on, each worker
+        ships the spans it recorded since its last result as it stops, and
+        they join this process's (utils.progress)."""
+        from lorikeet_tpu_torch.utils import progress
+        stop = ("stop", progress.GLOBAL_STAGES is not None)
         for _ in self.workers:
             try:
-                self.task_q.put(None)
+                self.task_q.put(stop)
             except Exception:  # noqa: BLE001
                 pass
-        # results nobody gathered (after an error) are drained while the
-        # workers exit: a worker cannot exit while its queue feeder still
-        # holds data for a full pipe
+
+        def drain():
+            # results nobody gathered (after an error) are dropped; the
+            # workers' last spans are kept
+            try:
+                while True:
+                    _, status, payload = self.result_q.get_nowait()
+                    if status == "spans":
+                        progress.merge_spans(payload)
+            except Exception:  # noqa: BLE001 — queue.Empty
+                pass
+
+        # drained while the workers exit: a worker cannot exit while its
+        # queue feeder still holds data for a full pipe
         deadline = time.monotonic() + 10
         for w in self.workers:
             while w.is_alive() and time.monotonic() < deadline:
-                try:
-                    while True:
-                        self.result_q.get_nowait()
-                except Exception:  # noqa: BLE001 — queue.Empty
-                    pass
+                drain()
                 w.join(timeout=0.1)
             if w.is_alive():
                 w.terminate()
                 w.join(timeout=5)
+        drain()
         # the service stops after the workers: one of them may still be
         # waiting on its last reply
         self._service_stop.set()
@@ -704,6 +758,7 @@ def _add_counters(counters: dict):
     if acc is not None:
         for stage, seconds in (counters["stages"] or {}).items():
             acc[stage] = acc.get(stage, 0.0) + seconds
+    progress.merge_spans(counters["spans"])
     for key in WORKER_COUNTS:
         WORKER_COUNTS[key] += counters[key]
     report = counters["report"]

@@ -202,14 +202,16 @@ def call_contig(
         from lorikeet_tpu_torch.calling.engine import (
             call_regions_batched, compute_works_likelihoods,
         )
+        from lorikeet_tpu_torch.utils import progress
         parts = []
         pending = None
 
         def _finish(p):
             result, works, fut = p
-            for calls in call_regions_batched(engine, works,
-                                              fut.result() if fut else None):
-                result.calls.extend(calls)
+            lks = fut.result() if fut else None
+            with progress.global_stage("genotype"):
+                for calls in call_regions_batched(engine, works, lks):
+                    result.calls.extend(calls)
             parts.append(result)
 
         with ThreadPoolExecutor(1) as pool:
@@ -338,222 +340,218 @@ def _call_span(fasta, bams, contig_name, cfg, engine, lo, hi,
     core_lo = lo if core_lo is None else core_lo
     core_hi = hi if core_hi is None else core_hi
 
-    # hot-path stage accounting (utils.progress.GLOBAL_STAGES; off = no-op)
-    import time as _time
+    # the span recorder (utils.progress; off: one None check a site)
     from lorikeet_tpu_torch.utils import progress as _prog
-    _tick = [_time.perf_counter()]
 
-    def _mark(stage):
-        acc = _prog.GLOBAL_STAGES
-        now = _time.perf_counter()
-        if acc is not None:
-            acc[stage] = acc.get(stage, 0.0) + now - _tick[0]
-        _tick[0] = now
+    with _prog.global_stage("profile"):
+        length = fasta.length(contig_name)
+        if ref_seq is None:
+            ref_seq = fasta.fetch(contig_name)
+        n_samples = len(bams)
+        tid_per_bam = [b.tid(contig_name) if contig_name in b.references else -1
+                       for b in bams]
+        result = ContigResult(tid=tid_per_bam[0] if tid_per_bam else 0)
 
-    length = fasta.length(contig_name)
-    if ref_seq is None:
-        ref_seq = fasta.fetch(contig_name)
-    n_samples = len(bams)
-    tid_per_bam = [b.tid(contig_name) if contig_name in b.references else -1
-                   for b in bams]
-    result = ContigResult(tid=tid_per_bam[0] if tid_per_bam else 0)
-
-    # ---- activity profiling over [lo, hi) ----
-    read_types = getattr(cfg, "read_types", None) or ["short"] * n_samples
-    thresholds = getattr(cfg, "alignment_thresholds", None)
-    from lorikeet_tpu_torch.io.filter import FlagFilter
-    flag_filter = getattr(cfg, "flag_filter", None) or FlagFilter()
-    profiles = [RefVsAnyProfile.zeros(hi - lo, cfg.ploidy) for _ in range(n_samples)]
-    # per-sample read source: ("eager", [records]) or ("lazy", bam, tid,
-    # sorted-order indices) — the lazy form never builds BamRecord objects
-    # for reads that stay outside active regions
-    sample_reads = [("eager", []) for _ in range(n_samples)]
-    for s, bam in enumerate(bams):
-        if tid_per_bam[s] < 0:
-            continue
-        # streaming readers decode exactly this span's BGZF window here
-        # (haplotype_caller_engine.rs:675-725 per-chunk indexed fetch);
-        # all index-based access below is window-relative and self-consistent
-        bam.prepare_span(tid_per_bam[s], lo, hi)
-        rt = read_types[s] if s < len(read_types) else "short"
-        mask = bam.filter_mask(
-            tid_per_bam[s], cfg.mapq_threshold, read_type=rt,
-            min_long_read_size=cfg.min_long_read_size,
-            min_long_read_average_base_qual=cfg.min_long_read_average_base_qual,
-            include_improper_pairs=flag_filter.include_improper_pairs,
-            include_supplementary=flag_filter.include_supplementary)
-        cols = None
-        if mask is not None and (thresholds is None
-                                 or not thresholds.active):
-            cols = getattr(bam, "columnar", lambda t: None)(tid_per_bam[s])
-        if cols is not None:
-            from lorikeet_tpu_torch.models.activity import accumulate_reads_columnar
-            idx = bam.fetch_indices(tid_per_bam[s], lo, hi, mask=mask)
-            if accumulate_reads_columnar(
-                    profiles[s], cols, idx, ref_seq[lo:hi], lo, hi,
-                    bq=cfg.min_base_quality, ploidy=cfg.ploidy):
-                sample_reads[s] = ("lazy", bam, tid_per_bam[s], idx)
+        # ---- activity profiling over [lo, hi) ----
+        read_types = getattr(cfg, "read_types", None) or ["short"] * n_samples
+        thresholds = getattr(cfg, "alignment_thresholds", None)
+        from lorikeet_tpu_torch.io.filter import FlagFilter
+        flag_filter = getattr(cfg, "flag_filter", None) or FlagFilter()
+        profiles = [RefVsAnyProfile.zeros(hi - lo, cfg.ploidy) for _ in range(n_samples)]
+        # per-sample read source: ("eager", [records]) or ("lazy", bam, tid,
+        # sorted-order indices) — the lazy form never builds BamRecord objects
+        # for reads that stay outside active regions
+        sample_reads = [("eager", []) for _ in range(n_samples)]
+        for s, bam in enumerate(bams):
+            if tid_per_bam[s] < 0:
                 continue
-        candidates = []
-        for rec in bam.fetch(tid_per_bam[s], lo, hi, mask=mask):
-            if mask is None and not _read_passes_filters(
-                    rec, cfg.mapq_threshold, read_type=rt,
-                    min_long_read_size=cfg.min_long_read_size,
-                    min_long_read_average_base_qual=cfg.min_long_read_average_base_qual,
-                    flag_filter=flag_filter):
-                continue
-            rec.sample_index = s
-            candidates.append(rec)
-        if thresholds is not None and thresholds.active:
-            from lorikeet_tpu_torch.io.filter import apply_alignment_thresholds
-            candidates = apply_alignment_thresholds(candidates, thresholds)
-        sample_reads[s] = ("eager", candidates)
-        accumulate_reads(profiles[s], candidates, ref_seq[lo:hi], lo, hi,
-                         bq=cfg.min_base_quality, ploidy=cfg.ploidy)
+            # streaming readers decode exactly this span's BGZF window here
+            # (haplotype_caller_engine.rs:675-725 per-chunk indexed fetch);
+            # all index-based access below is window-relative and self-consistent
+            bam.prepare_span(tid_per_bam[s], lo, hi)
+            rt = read_types[s] if s < len(read_types) else "short"
+            mask = bam.filter_mask(
+                tid_per_bam[s], cfg.mapq_threshold, read_type=rt,
+                min_long_read_size=cfg.min_long_read_size,
+                min_long_read_average_base_qual=cfg.min_long_read_average_base_qual,
+                include_improper_pairs=flag_filter.include_improper_pairs,
+                include_supplementary=flag_filter.include_supplementary)
+            cols = None
+            if mask is not None and (thresholds is None
+                                     or not thresholds.active):
+                cols = getattr(bam, "columnar", lambda t: None)(tid_per_bam[s])
+            if cols is not None:
+                from lorikeet_tpu_torch.models.activity import accumulate_reads_columnar
+                idx = bam.fetch_indices(tid_per_bam[s], lo, hi, mask=mask)
+                if accumulate_reads_columnar(
+                        profiles[s], cols, idx, ref_seq[lo:hi], lo, hi,
+                        bq=cfg.min_base_quality, ploidy=cfg.ploidy):
+                    sample_reads[s] = ("lazy", bam, tid_per_bam[s], idx)
+                    continue
+            candidates = []
+            for rec in bam.fetch(tid_per_bam[s], lo, hi, mask=mask):
+                if mask is None and not _read_passes_filters(
+                        rec, cfg.mapq_threshold, read_type=rt,
+                        min_long_read_size=cfg.min_long_read_size,
+                        min_long_read_average_base_qual=cfg.min_long_read_average_base_qual,
+                        flag_filter=flag_filter):
+                    continue
+                rec.sample_index = s
+                candidates.append(rec)
+            if thresholds is not None and thresholds.active:
+                from lorikeet_tpu_torch.io.filter import apply_alignment_thresholds
+                candidates = apply_alignment_thresholds(candidates, thresholds)
+            sample_reads[s] = ("eager", candidates)
+            accumulate_reads(profiles[s], candidates, ref_seq[lo:hi], lo, hi,
+                             bq=cfg.min_base_quality, ploidy=cfg.ploidy)
 
-    _mark("profile")
-    result.depth_pass_rle = [
-        _rle_encode((p.dp() >= getattr(cfg, "depth_per_sample_filter",
-                                       DEPTH_PER_SAMPLE_FILTER))
-                    [core_lo - lo:core_hi - lo]) for p in profiles]
-    gls = np.stack([p.finalize_gls(cfg.ploidy) for p in profiles])
-    hq_n = sum(p.hq_sc_n for p in profiles)
-    hq_sum = sum(p.hq_sc_sum for p in profiles)
-    hq_mean = np.where(hq_n > 0, hq_sum / np.maximum(hq_n, 1), 0.0)
-    prop = getattr(cfg, "max_prob_propagation_distance", 50)
-    if getattr(cfg, "device_activity", False):
-        # EM + band-pass as one chain of torch ops on the devices; in a
-        # pool worker, on the parent's
-        args = (gls, hq_mean, cfg.ploidy, cfg.snp_heterozygosity,
-                cfg.heterozygosity_stdev, cfg.stand_min_conf, prop)
-        if DEVICE_ACTIVITY is not None:
-            smoothed = DEVICE_ACTIVITY(*args)
+    with _prog.global_stage("smooth_extract"):
+        result.depth_pass_rle = [
+            _rle_encode((p.dp() >= getattr(cfg, "depth_per_sample_filter",
+                                           DEPTH_PER_SAMPLE_FILTER))
+                        [core_lo - lo:core_hi - lo]) for p in profiles]
+        gls = np.stack([p.finalize_gls(cfg.ploidy) for p in profiles])
+        hq_n = sum(p.hq_sc_n for p in profiles)
+        hq_sum = sum(p.hq_sc_sum for p in profiles)
+        hq_mean = np.where(hq_n > 0, hq_sum / np.maximum(hq_n, 1), 0.0)
+        prop = getattr(cfg, "max_prob_propagation_distance", 50)
+        if getattr(cfg, "device_activity", False):
+            # EM + band-pass as one chain of torch ops on the devices; in a
+            # pool worker, on the parent's
+            args = (gls, hq_mean, cfg.ploidy, cfg.snp_heterozygosity,
+                    cfg.heterozygosity_stdev, cfg.stand_min_conf, prop)
+            if DEVICE_ACTIVITY is not None:
+                smoothed = DEVICE_ACTIVITY(*args)
+            else:
+                from lorikeet_tpu_torch.parallel.pipeline import (
+                    smoothed_activity_device)
+                smoothed = smoothed_activity_device(
+                    *args[:-1], max_prob_propagation=prop,
+                    devices=_activity_devices(cfg))
         else:
-            from lorikeet_tpu_torch.parallel.pipeline import (
-                smoothed_activity_device)
-            smoothed = smoothed_activity_device(
-                *args[:-1], max_prob_propagation=prop,
-                devices=_activity_devices(cfg))
-    else:
-        raw_probs = active_probabilities(gls, cfg.ploidy,
-                                         cfg.snp_heterozygosity,
-                                         cfg.heterozygosity_stdev,
-                                         cfg.stand_min_conf)
-        smoothed = band_pass_smooth(raw_probs, hq_mean,
-                                    max_prob_propagation=prop)
-    # forced-calling feature VCF: regions carrying given alleles are called
-    # even when inactive (haplotype_caller_engine.rs:1166-1177) — realised
-    # here by forcing the activity probability at given starts
-    given_span = []
-    if getattr(cfg, "features_vcf", None):
-        from lorikeet_tpu_torch.calling.given_alleles import load_feature_vcf
-        by_contig = load_feature_vcf(cfg.features_vcf)
-        given_span = [vc for vc in by_contig.get(contig_name, [])
-                      if lo <= vc.start < hi]
-        if given_span:
-            smoothed = np.asarray(smoothed).copy()
-            for vc in given_span:
-                smoothed[vc.start - lo] = 1.0
-    regions = extract_regions(smoothed,
-                              active_prob_threshold=cfg.active_prob_threshold,
-                              min_region_size=cfg.min_assembly_region_size,
-                              max_region_size=cfg.max_assembly_region_size)
-    result.n_regions = sum(1 for r in regions
-                           if core_lo <= lo + r.start < core_hi)
-    _mark("smooth_extract")
+            raw_probs = active_probabilities(gls, cfg.ploidy,
+                                             cfg.snp_heterozygosity,
+                                             cfg.heterozygosity_stdev,
+                                             cfg.stand_min_conf)
+            smoothed = band_pass_smooth(raw_probs, hq_mean,
+                                        max_prob_propagation=prop)
+        # forced-calling feature VCF: regions carrying given alleles are called
+        # even when inactive (haplotype_caller_engine.rs:1166-1177) — realised
+        # here by forcing the activity probability at given starts
+        given_span = []
+        if getattr(cfg, "features_vcf", None):
+            from lorikeet_tpu_torch.calling.given_alleles import load_feature_vcf
+            by_contig = load_feature_vcf(cfg.features_vcf)
+            given_span = [vc for vc in by_contig.get(contig_name, [])
+                          if lo <= vc.start < hi]
+            if given_span:
+                smoothed = np.asarray(smoothed).copy()
+                for vc in given_span:
+                    smoothed[vc.start - lo] = 1.0
+        regions = extract_regions(smoothed,
+                                  active_prob_threshold=cfg.active_prob_threshold,
+                                  min_region_size=cfg.min_assembly_region_size,
+                                  max_region_size=cfg.max_assembly_region_size)
+        result.n_regions = sum(1 for r in regions
+                               if core_lo <= lo + r.start < core_hi)
 
-    # ---- prepare each active region (host), then run ONE batched pair-HMM
-    # dispatch for the whole span (regions are owned by the chunk their
-    # active span STARTS in, so halo overlaps never double-call) ----
-    from lorikeet_tpu_torch.calling.clipping import (
-        finalize_region_reads, finalize_region_reads_columnar,
-    )
-    from lorikeet_tpu_torch.calling.engine import call_regions_batched
-    # vectorized read-span index per sample: one (pos, reference_end) array
-    # pair instead of O(reads x regions) per-record property calls
-    span_arrays = []
-    for s in range(n_samples):
-        kind = sample_reads[s]
-        if kind[0] == "lazy":
-            _, b, t, idx = kind
-            c = b.columnar(t)
-            span_arrays.append((c["pos"][idx], c["ends"][idx]))
-        else:
-            rs = kind[1]
-            span_arrays.append((
-                np.fromiter((r.pos for r in rs), np.int64, len(rs)),
-                np.fromiter((r.reference_end for r in rs), np.int64,
-                            len(rs))))
-    works = []
-    for region in regions:
-        if not region.is_active:
-            continue
-        active_start = lo + region.start
-        active_end = lo + region.end
-        if not (core_lo <= active_start < core_hi):
-            continue
-        result.n_active += 1
-        pad_start = max(0, active_start - cfg.assembly_region_padding)
-        pad_end = min(length - 1, active_end + cfg.assembly_region_padding)
-        window = ref_seq[pad_start:pad_end + 1]
-        reads_by_sample = {}
+    with _prog.global_stage("region_prep"):
+        # ---- prepare each active region (host), then run ONE batched pair-HMM
+        # dispatch for the whole span (regions are owned by the chunk their
+        # active span STARTS in, so halo overlaps never double-call) ----
+        from lorikeet_tpu_torch.calling.clipping import (
+            finalize_region_reads, finalize_region_reads_columnar,
+        )
+        from lorikeet_tpu_torch.calling.engine import call_regions_batched
+        # vectorized read-span index per sample: one (pos, reference_end) array
+        # pair instead of O(reads x regions) per-record property calls
+        span_arrays = []
         for s in range(n_samples):
-            pos_a, end_a = span_arrays[s]
-            sel = np.flatnonzero((pos_a <= pad_end) & (end_a > pad_start))
-            sel = sel[:cfg.max_input_depth]
             kind = sample_reads[s]
             if kind[0] == "lazy":
-                # native columnar finalize: records_at + the whole clipping
-                # chain fused into one C++ call — each kept read
-                # materializes once, already clipped/qual-adjusted
                 _, b, t, idx = kind
-                fin = finalize_region_reads_columnar(
-                    b, t, idx[sel], s, pad_start, pad_end,
-                    min_base_quality=cfg.min_base_quality,
-                    dont_use_soft_clipped_bases=
-                    cfg.dont_use_soft_clipped_bases,
-                    soft_clip_low_quality_ends=
-                    cfg.soft_clip_low_quality_ends)
-                if fin is None:           # no native toolchain
-                    fin = finalize_region_reads(
-                        {s: b.records_at(t, idx[sel], sample_index=s)},
-                        pad_start, pad_end,
-                        min_base_quality=cfg.min_base_quality,
-                        dont_use_soft_clipped_bases=
-                        cfg.dont_use_soft_clipped_bases,
-                        soft_clip_low_quality_ends=
-                        cfg.soft_clip_low_quality_ends)[s]
-                reads_by_sample[s] = fin
+                c = b.columnar(t)
+                span_arrays.append((c["pos"][idx], c["ends"][idx]))
             else:
                 rs = kind[1]
-                reads_by_sample[s] = finalize_region_reads(
-                    {s: [rs[i] for i in sel.tolist()]}, pad_start, pad_end,
-                    min_base_quality=cfg.min_base_quality,
-                    dont_use_soft_clipped_bases=
-                    cfg.dont_use_soft_clipped_bases,
-                    soft_clip_low_quality_ends=
-                    cfg.soft_clip_low_quality_ends)[s]
-        given_here = [vc for vc in given_span
-                      if vc.start <= pad_end and vc.end >= pad_start]
-        # fraction of active-span positions meaningfully active, keys the
-        # automatic extra kmer sizes (activity_profile.rs:506-518 density
-        # over smoothed probs > 0.05)
-        span_probs = smoothed[region.start:region.end + 1]
-        density = float(np.mean(span_probs > 0.05)) if len(span_probs) else 0.0
-        work = engine.prepare_region(window, pad_start, active_start,
-                                     active_end, reads_by_sample,
-                                     tid=result.tid,
-                                     given_alleles=given_here,
-                                     activity_density=density,
-                                     finalized=True)
-        if work is not None:
-            works.append(work)
-    _mark("region_prep")
+                span_arrays.append((
+                    np.fromiter((r.pos for r in rs), np.int64, len(rs)),
+                    np.fromiter((r.reference_end for r in rs), np.int64,
+                                len(rs))))
+        works = []
+        for region in regions:
+            if not region.is_active:
+                continue
+            active_start = lo + region.start
+            active_end = lo + region.end
+            if not (core_lo <= active_start < core_hi):
+                continue
+            result.n_active += 1
+            pad_start = max(0, active_start - cfg.assembly_region_padding)
+            pad_end = min(length - 1, active_end + cfg.assembly_region_padding)
+            window = ref_seq[pad_start:pad_end + 1]
+            reads_by_sample = {}
+            with _prog.substage("finalize"):
+                for s in range(n_samples):
+                    pos_a, end_a = span_arrays[s]
+                    sel = np.flatnonzero((pos_a <= pad_end) & (end_a > pad_start))
+                    sel = sel[:cfg.max_input_depth]
+                    kind = sample_reads[s]
+                    if kind[0] == "lazy":
+                        # native columnar finalize: records_at + the whole clipping
+                        # chain fused into one C++ call — each kept read
+                        # materializes once, already clipped/qual-adjusted
+                        _, b, t, idx = kind
+                        fin = finalize_region_reads_columnar(
+                            b, t, idx[sel], s, pad_start, pad_end,
+                            min_base_quality=cfg.min_base_quality,
+                            dont_use_soft_clipped_bases=
+                            cfg.dont_use_soft_clipped_bases,
+                            soft_clip_low_quality_ends=
+                            cfg.soft_clip_low_quality_ends)
+                        if fin is None:           # no native toolchain
+                            fin = finalize_region_reads(
+                                {s: b.records_at(t, idx[sel], sample_index=s)},
+                                pad_start, pad_end,
+                                min_base_quality=cfg.min_base_quality,
+                                dont_use_soft_clipped_bases=
+                                cfg.dont_use_soft_clipped_bases,
+                                soft_clip_low_quality_ends=
+                                cfg.soft_clip_low_quality_ends)[s]
+                        reads_by_sample[s] = fin
+                    else:
+                        rs = kind[1]
+                        reads_by_sample[s] = finalize_region_reads(
+                            {s: [rs[i] for i in sel.tolist()]}, pad_start, pad_end,
+                            min_base_quality=cfg.min_base_quality,
+                            dont_use_soft_clipped_bases=
+                            cfg.dont_use_soft_clipped_bases,
+                            soft_clip_low_quality_ends=
+                            cfg.soft_clip_low_quality_ends)[s]
+            given_here = [vc for vc in given_span
+                          if vc.start <= pad_end and vc.end >= pad_start]
+            # fraction of active-span positions meaningfully active, keys the
+            # automatic extra kmer sizes (activity_profile.rs:506-518 density
+            # over smoothed probs > 0.05)
+            span_probs = smoothed[region.start:region.end + 1]
+            density = float(np.mean(span_probs > 0.05)) if len(span_probs) else 0.0
+            work = engine.prepare_region(window, pad_start, active_start,
+                                         active_end, reads_by_sample,
+                                         tid=result.tid,
+                                         given_alleles=given_here,
+                                         activity_density=density,
+                                         finalized=True)
+            if work is not None:
+                works.append(work)
     if defer:
         return result, works
-    for calls in call_regions_batched(engine, works) if works else []:
-        result.calls.extend(calls)
-    _mark("pairhmm_genotype")
+    if works:
+        from lorikeet_tpu_torch.calling.engine import (
+            compute_works_likelihoods)
+        lks = compute_works_likelihoods(engine, works)
+        with _prog.global_stage("genotype"):
+            for calls in call_regions_batched(engine, works, lks):
+                result.calls.extend(calls)
     return result
 
 
@@ -831,32 +829,34 @@ def _assemble_genome_outputs(spec, fasta, results, genome_dir, cfg,
     """Gather per-contig results into the genome VCF + ANI tables (the
     single-writer tail of the per-genome task)."""
     from lorikeet_tpu_torch.strain.ani import run_ani
+    from lorikeet_tpu_torch.utils.progress import global_stage
 
-    all_calls = []
-    passing_rle = [[] for _ in range(n_samples)]
-    genome_size = 0
-    for local_tid, contig in enumerate(spec.contigs):
-        res = results[local_tid]
-        for vc in res.calls:
-            vc.tid = local_tid
-        all_calls.extend(res.calls)
-        for s in range(n_samples):
-            rle = (res.depth_pass_rle[s] if s < len(res.depth_pass_rle)
-                   else [-fasta.length(contig)])
-            passing_rle[s].extend(rle or [-fasta.length(contig)])
-        genome_size += fasta.length(contig)
+    with global_stage("genome.outputs", genome=spec.name):
+        all_calls = []
+        passing_rle = [[] for _ in range(n_samples)]
+        genome_size = 0
+        for local_tid, contig in enumerate(spec.contigs):
+            res = results[local_tid]
+            for vc in res.calls:
+                vc.tid = local_tid
+            all_calls.extend(res.calls)
+            for s in range(n_samples):
+                rle = (res.depth_pass_rle[s] if s < len(res.depth_pass_rle)
+                       else [-fasta.length(contig)])
+                passing_rle[s].extend(rle or [-fasta.length(contig)])
+            genome_size += fasta.length(contig)
 
-    contig_lengths = [fasta.length(n) for n in spec.contigs]
-    vcf_path = os.path.join(genome_dir, f"{spec.name}.vcf")
-    write_vcf(vcf_path, all_calls, spec.contigs, contig_lengths, sample_names)
-    ani_paths = run_ani(all_calls, os.path.join(genome_dir, spec.name),
-                        sample_names, spec.name, genome_size,
-                        passing_sites=passing_rle,
-                        qual_by_depth_filter=getattr(
-                            cfg, "qual_by_depth_filter", 25.0),
-                        depth_per_sample_filter=getattr(
-                            cfg, "depth_per_sample_filter", 5))
-    return {"vcf": vcf_path, "ani": ani_paths, "n_calls": len(all_calls)}
+        contig_lengths = [fasta.length(n) for n in spec.contigs]
+        vcf_path = os.path.join(genome_dir, f"{spec.name}.vcf")
+        write_vcf(vcf_path, all_calls, spec.contigs, contig_lengths, sample_names)
+        ani_paths = run_ani(all_calls, os.path.join(genome_dir, spec.name),
+                            sample_names, spec.name, genome_size,
+                            passing_sites=passing_rle,
+                            qual_by_depth_filter=getattr(
+                                cfg, "qual_by_depth_filter", 25.0),
+                            depth_per_sample_filter=getattr(
+                                cfg, "depth_per_sample_filter", 5))
+        return {"vcf": vcf_path, "ani": ani_paths, "n_calls": len(all_calls)}
 
 
 def _genome_units(spec, fasta, cfg, n_samples, limit=None) -> list:
