@@ -20,7 +20,10 @@ region fan-out under the global pool of src/bin/lorikeet.rs:29-32).  Here:
   first card (``"sw"``).  A worker packs its batch on its own CPU
   (``prepare_grouped_jobs``), sends it, prepares its next span while the
   card computes, then genotypes on the reply: one outstanding request per
-  worker, replies in the order each worker sent its requests.
+  worker, replies in the order each worker sent its requests.  A pair
+  batch's arrays travel in a shared-memory segment the worker owns, only
+  their header on the pipe (``parallel.shm``); the service maps the batch
+  while it enqueues it.  ``"act"`` and ``"sw"`` requests are pickled.
 - A worker packs in the wire form (4-bit bases and a u8 codebook index a
   lane, decoded on the card) when the parent's gate says so
   (``pairhmm_cuda._wire_enabled``: ``LORIKEET_WIRE_COMPRESS``, or under
@@ -81,8 +84,10 @@ SERVICE_DEPTH = 2
 #: wire gate): a pool is kept for one setting of it (see get_pool)
 ROUTE_ENV = ("LORIKEET_REMOTE_ROUTE", "LORIKEET_WIRE_COMPRESS")
 #: requests the workers sent to the device service, added up by
-#: ``gather``: pair batches, SW batches, spans' activity chains
-WORKER_COUNTS = {"lk_batches": 0, "sw_batches": 0, "act_spans": 0}
+#: ``gather``: pair batches, those of them that went through the worker's
+#: shared-memory segment, SW batches, spans' activity chains
+WORKER_COUNTS = {"lk_batches": 0, "lk_shm_batches": 0, "sw_batches": 0,
+                 "act_spans": 0}
 #: spans ``gather_contig`` ran again because a deletion carried from the
 #: spans before covered a site there
 SPAN_RERUNS = {"spans": 0}
@@ -126,6 +131,8 @@ def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire):
     on_card = rpc_conn is not None and cfg.use_cuda is not False
     if on_card:
         from lorikeet_tpu_torch.ops.pairhmm_pack import prepare_grouped_jobs
+        from lorikeet_tpu_torch.parallel.shm import WorkerSegment
+        segment = WorkerSegment()          # its memfd made at the first batch
     # from the spawn to here: an interpreter and this package's host
     # modules; no torch (the packer is numpy only, the card the parent's)
     spawn_s = time.time() - t_spawn
@@ -330,16 +337,21 @@ def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire):
                         # request: a duplex pipe with a blocked send on
                         # BOTH ends (parent pushing reply N, worker pushing
                         # request N+1, each larger than the socket buffer)
-                        # is a hard deadlock.  Overlap is unharmed: span
-                        # N+1's host prep already ran while the card
-                        # computed batch N; only the send moves.
+                        # is a hard deadlock.  It also guards the segment:
+                        # the service replies to batch N only after it has
+                        # copied it out and unmapped it, so batch N+1 never
+                        # overwrites a batch the service still reads.
+                        # Overlap is unharmed: span N+1's host prep already
+                        # ran while the card computed batch N; only the
+                        # send moves.
                         if pending is not None:
                             _finish(pending)
                             pending = None
                         t0 = time.perf_counter()
                         with stage("lk.send", into="pairhmm"):
-                            rpc_conn.send(("lk", job, tid))
+                            segment.send(rpc_conn, job, tid)
                         sent["lk_batches"] += 1
+                        sent["lk_shm_batches"] += 1
                         pending = (tid, res, engine, works,
                                    spent + time.perf_counter() - t0)
                     else:
@@ -362,6 +374,8 @@ def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire):
                 # every later batch the likelihoods of the one before
                 _finish(pending)
                 pending = None
+    if on_card:
+        segment.close()
     if rpc_conn is not None:
         rpc_conn.send(("bye", None, None))
 
@@ -371,6 +385,8 @@ class SpanWorkerPool:
 
     def __init__(self, cfg, n_workers: int, device_service: bool):
         import multiprocessing as mp
+
+        from lorikeet_tpu_torch.parallel.shm import ServiceSegments
         ctx = mp.get_context("spawn")
         self.key = None                      # set by get_pool
         self.n_workers = n_workers
@@ -390,6 +406,8 @@ class SpanWorkerPool:
         self._service_stop = threading.Event()
         self._service_thread = None
         self._conns = []
+        #: the descriptor of each worker's segment, held for the service
+        self._segments = ServiceSegments()
         self._wid_proc = {}
         #: whether the workers pack their pair batches in the wire form:
         #: the parent's gate, asked only when its card serves them
@@ -549,17 +567,27 @@ class SpanWorkerPool:
                     finish(inflight.pop(0))
                 continue
             for conn in ready:
+                batch = None
                 try:
-                    # each request is (kind, payload, tid): the tid of the
-                    # worker's task for "lk", None for the others
+                    # each request is (kind, payload, tid): the tid of
+                    # the worker's task for "lk", None for the others;
+                    # an "lk" payload is the header of a batch in the
+                    # worker's segment, mapped here
                     with global_stage("service.recv"):
                         kind, payload, tid = conn.recv()
                         annotate(kind=kind, tid=tid)
+                        if kind == "lk":
+                            batch = self._segments.receive(conn, payload)
                 except (EOFError, OSError):
                     closed.add(conn)
+                    self._segments.drop(conn)
+                    continue
+                except Exception:  # noqa: BLE001 — the worker raises it
+                    reply(conn, ("error", traceback.format_exc()))
                     continue
                 if kind == "bye":
                     closed.add(conn)
+                    self._segments.drop(conn)
                     continue
                 try:
                     # inside the try: a malformed payload is an error reply
@@ -568,15 +596,18 @@ class SpanWorkerPool:
                     if kind == "lk" and L._ROUTE_MODE == "host":
                         reply(conn, ("local", None))
                     elif kind == "lk":
-                        arrays, out_pos = payload
                         devices = get_devices()
                         # the call whatever wraps it (its own span is
                         # k2.enqueue)
                         with global_stage("service.enqueue", tid=tid):
                             handle = PC.enqueue_grouped_jobs(
-                                arrays, out_pos, devices,
+                                batch.arrays, batch.out_pos, devices,
                                 [stream_of(i, d)
                                  for i, d in enumerate(devices)])
+                        # the enqueue pinned a copy of every array (a
+                        # CPU device computed at once): the segment is
+                        # the worker's again once it is unmapped
+                        batch.close()
                         inflight.append((conn, handle))
                         L.DISPATCH_COUNTS["remote"] += 1
                     elif kind == "act":
@@ -595,6 +626,10 @@ class SpanWorkerPool:
                         raise ValueError(f"unknown request {kind!r}")
                 except Exception:  # noqa: BLE001 — the worker raises it
                     reply(conn, ("error", traceback.format_exc()))
+                if batch is not None:
+                    # a failed or "local" batch: its traceback is gone
+                    # here, and with it any view of the segment
+                    batch.close(strict=False)
                 while len(inflight) >= SERVICE_DEPTH:
                     finish(inflight.pop(0))
         while inflight:
@@ -728,6 +763,7 @@ class SpanWorkerPool:
             self._service_thread.join(timeout=5)
         for conn in self._conns:
             conn.close()
+        self._segments.close()
 
 
 def carry_deletions(carried: list, checks: list) -> tuple:

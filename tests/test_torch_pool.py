@@ -203,7 +203,8 @@ def test_service_over_devices_and_activity(genome80, plain_devices,
     assert pooled.n_regions == serial.n_regions
     assert pooled.depth_pass_rle == serial.depth_pass_rle
     assert sorted(set(cards)) == list(range(n_devices))
-    assert pool_mod.WORKER_COUNTS == {"lk_batches": 1, "sw_batches": 0,
+    assert pool_mod.WORKER_COUNTS == {"lk_batches": 1, "lk_shm_batches": 1,
+                                      "sw_batches": 0,
                                       "act_spans": int(activity)}
     reports = [pool_mod.WORKER_REPORTS.get(w.pid) for w in pool.workers]
     assert any(reports)
