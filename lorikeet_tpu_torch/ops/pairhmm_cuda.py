@@ -55,7 +55,8 @@ from lorikeet_tpu_torch.ops.pairhmm import TRISTATE_CORRECTION
 # the grouped packer is numpy only and lives apart, so that a pool worker
 # packs its batches without importing torch; its names stay importable here
 from lorikeet_tpu_torch.ops.pairhmm_pack import (  # noqa: F401
-    GROUP_BLOCK_B, WIRE_NAMES, _PLANES, _round_up, prepare_grouped_jobs,
+    GROUP_BLOCK_B, WIRE_NAMES, _PLANES, _round_up, grouped_strip,
+    prepare_grouped_jobs, row_width, useful_cells,
 )
 from lorikeet_tpu_torch.utils.progress import global_stage
 
@@ -492,7 +493,10 @@ def enqueue_grouped_jobs(arrays: dict, out_pos: np.ndarray, devices,
     :func:`readback_grouped` waits on."""
     from lorikeet_tpu_torch.parallel.hosts import even_shares
     # the pinning, the copies in, the launches and the copies out, enqueued
-    with global_stage("k2.enqueue"):
+    with global_stage("k2.enqueue") as attrs:
+        if attrs is not None:
+            attrs.update(strip=grouped_strip(row_width(arrays)),
+                         cells=useful_cells(arrays))
         devices = device_list(devices)
         streams = streams or [None] * len(devices)
         mode = arrays.get("mode", "flat")

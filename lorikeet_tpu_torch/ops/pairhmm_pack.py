@@ -172,6 +172,31 @@ def pack_grouped_tables(pairs) -> tuple:
     return arrays, out_pos
 
 
+def row_width(arrays: dict) -> int:
+    """A grouped job's row width Rpad (lanes a read row holds), flat or
+    wire."""
+    return (arrays["qidx"] if arrays.get("mode") == "wire"
+            else arrays["quals"]).shape[1]
+
+
+def grouped_strip(rpad: int) -> int:
+    """The strip the grouped kernel launches for rows of width ``rpad``
+    (``pairhmm_grouped_launch`` in csrc/pairhmm.cu): the register strip of
+    4, 8 or 16 rows that holds K = rpad / 32 rows, or 0, the scratch
+    strips, past 16."""
+    k = rpad // GROUP_BLOCK_B
+    return next((c for c in (4, 8, 16) if k <= c), 0)
+
+
+def useful_cells(arrays: dict) -> int:
+    """DP cells a grouped job's pairs need: for each (tile, haplotype)
+    block, the tile's read bases times the haplotype's bases."""
+    tiles = arrays["read_lens"].reshape(-1, GROUP_BLOCK_B).sum(
+        1, dtype=np.int64)
+    return int((tiles[arrays["tile_tab"]]
+                * arrays["hap_lens"][arrays["hap_tab"]]).sum())
+
+
 
 # ---- the wire form (counterpart of _compress_dispatch and its caches) ----
 

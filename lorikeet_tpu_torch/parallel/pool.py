@@ -85,9 +85,12 @@ SERVICE_DEPTH = 2
 ROUTE_ENV = ("LORIKEET_REMOTE_ROUTE", "LORIKEET_WIRE_COMPRESS")
 #: requests the workers sent to the device service, added up by
 #: ``gather``: pair batches, those of them that went through the worker's
-#: shared-memory segment, SW batches, spans' activity chains
+#: shared-memory segment, SW batches, spans' activity chains; and what the
+#: pair batches held: read rows, those of long-read samples, lanes (the
+#: planes' rows, pad rows included, times Rpad) and the read bases in them
 WORKER_COUNTS = {"lk_batches": 0, "lk_shm_batches": 0, "sw_batches": 0,
-                 "act_spans": 0}
+                 "act_spans": 0, "lk_rows": 0, "lk_long_rows": 0,
+                 "lk_slots": 0, "lk_bases": 0}
 #: spans ``gather_contig`` ran again because a deletion carried from the
 #: spans before covered a site there
 SPAN_RERUNS = {"spans": 0}
@@ -114,6 +117,8 @@ def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire):
     import queue as _q
     import sys
 
+    import numpy as np
+
     from lorikeet_tpu_torch import processing
     from lorikeet_tpu_torch.calling import likelihoods as L
     from lorikeet_tpu_torch.calling import realign
@@ -130,9 +135,14 @@ def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire):
     stage = progress.global_stage
     on_card = rpc_conn is not None and cfg.use_cuda is not False
     if on_card:
-        from lorikeet_tpu_torch.ops.pairhmm_pack import prepare_grouped_jobs
+        from lorikeet_tpu_torch.ops.pairhmm_pack import (
+            prepare_grouped_jobs, row_width,
+        )
         from lorikeet_tpu_torch.parallel.shm import WorkerSegment
         segment = WorkerSegment()          # its memfd made at the first batch
+        # the samples of long-read BAMs (after the short ones)
+        long_samples = [s for s, kind in enumerate(cfg.read_types or ())
+                        if kind == "long"]
     # from the spawn to here: an interpreter and this package's host
     # modules; no torch (the packer is numpy only, the card the parent's)
     spawn_s = time.time() - t_spawn
@@ -330,9 +340,24 @@ def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire):
                     pairs = [p for w in works for p in w.pairs]
                     if pairs and L._route_remote(pairs):
                         t0 = time.perf_counter()
-                        with stage("lk.pack", into="pairhmm"):
+                        with stage("lk.pack", into="pairhmm") as attrs:
                             job = prepare_grouped_jobs(pairs, wire=wire)
                         spent = time.perf_counter() - t0
+                        # a work's pairs are each of its reads against
+                        # each haplotype, one packed row a read
+                        arrays = job[0]
+                        lens = arrays["read_lens"]
+                        rpad = row_width(arrays)
+                        rows = int(np.count_nonzero(lens))
+                        long_rows = sum(len(w.reads_by_sample.get(s, ()))
+                                        for w in works for s in long_samples)
+                        sent["lk_rows"] += rows
+                        sent["lk_long_rows"] += long_rows
+                        sent["lk_slots"] += lens.size * rpad
+                        sent["lk_bases"] += int(lens.sum(dtype=np.int64))
+                        if attrs is not None:
+                            attrs.update(rpad=rpad, rows=rows,
+                                         long_rows=long_rows)
                         # drain the previous reply BEFORE sending the next
                         # request: a duplex pipe with a blocked send on
                         # BOTH ends (parent pushing reply N, worker pushing

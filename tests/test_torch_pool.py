@@ -191,10 +191,17 @@ def test_service_over_devices_and_activity(genome80, plain_devices,
     cfg = CallerConfig(use_cuda=True, threads=2)
     cfg.device_activity = activity
     serial = _serial(fasta, bams, cfg)
-    cards = []
+    cards, lens, lanes = [], [], []
     real = pairhmm_cuda.pairhmm_grouped_cuda
-    monkeypatch.setattr(pairhmm_cuda, "pairhmm_grouped_cuda",
-                        lambda t, card=0: cards.append(card) or real(t, card))
+
+    def grouped(t, card=0):
+        # copies: a view of the batch's segment may not outlive its enqueue
+        cards.append(card)
+        lens.append(t["read_lens"].clone())
+        lanes.append(t["quals"].numel())
+        return real(t, card)
+
+    monkeypatch.setattr(pairhmm_cuda, "pairhmm_grouped_cuda", grouped)
     try:
         pooled, pool = _pooled(fasta, bams, cfg, device_service=True)
     finally:
@@ -203,9 +210,14 @@ def test_service_over_devices_and_activity(genome80, plain_devices,
     assert pooled.n_regions == serial.n_regions
     assert pooled.depth_pass_rle == serial.depth_pass_rle
     assert sorted(set(cards)) == list(range(n_devices))
+    # each device's share holds the batch's whole planes
     assert pool_mod.WORKER_COUNTS == {"lk_batches": 1, "lk_shm_batches": 1,
                                       "sw_batches": 0,
-                                      "act_spans": int(activity)}
+                                      "act_spans": int(activity),
+                                      "lk_rows": int((lens[0] > 0).sum()),
+                                      "lk_long_rows": 0,
+                                      "lk_slots": lanes[0],
+                                      "lk_bases": int(lens[0].sum())}
     reports = [pool_mod.WORKER_REPORTS.get(w.pid) for w in pool.workers]
     assert any(reports)
     assert not any(r["torch_imported"] for r in reports if r)
