@@ -1227,9 +1227,12 @@ def call_phase(root):
                   f"counts {leg['sw_counts']}")
             sw_batch = sw_batch or sw_largest
         else:
-            check(leg["sw_launches"] == 0
+            # a card leg's haplotype CIGARs take K3 whatever the flag
+            # (processing._span_hap_cigars); the realignment stays on
+            # the host
+            check((on_card or leg["sw_launches"] == 0)
                   and leg["sw_counts"]["device"] == 0,
-                  f"{label} leg ran the SW on the device")
+                  f"{label} leg ran the realignment SW on the device")
         legs[label] = leg
     for plain_sw, card_sw in SAME_VCF:
         with open(legs[plain_sw]["vcf"], "rb") as a, \

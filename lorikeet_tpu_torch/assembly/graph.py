@@ -997,7 +997,35 @@ def _ref_has_non_unique_kmers(ref_bytes: bytes, k: int) -> bool:
     return False
 
 
-def assemble_region(
+def assemble_region(ref_seq: np.ndarray, reads_by_sample: dict,
+                    **kwargs) -> list:
+    """Assemble haplotypes for one region. Returns [AssembledHaplotype],
+    reference haplotype first: :func:`assemble_candidates` (same keyword
+    arguments) and each candidate's CIGAR against the window."""
+    ref_bytes, candidates = assemble_candidates(ref_seq, reads_by_sample,
+                                                **kwargs)
+    ref = np.frombuffer(ref_bytes, np.uint8)
+    return haplotypes_from_candidates(
+        ref_bytes, candidates,
+        [calculate_cigar(ref, np.frombuffer(bases, np.uint8))
+         for _, bases, _ in candidates])
+
+
+def haplotypes_from_candidates(ref_bytes: bytes, candidates: list,
+                               cigars: list) -> list:
+    """[AssembledHaplotype], reference first, from
+    :func:`assemble_candidates`' candidates and each one's CIGAR against the
+    window (None: the alignment does not span it, and the candidate is
+    dropped)."""
+    out = [AssembledHaplotype(ref_bytes, [("M", len(ref_bytes))], 0.0, True,
+                              0)]
+    for (score, bases, k), cigar in zip(candidates, cigars):
+        if cigar is not None:
+            out.append(AssembledHaplotype(bases, cigar, score, False, k))
+    return out
+
+
+def assemble_candidates(
     ref_seq: np.ndarray,
     reads_by_sample: dict,
     kmer_sizes=(21, 33),
@@ -1022,9 +1050,13 @@ def assemble_region(
     generate_seq_graph: bool = True,
     dot_path: str = None,
     dot_prefix: str = "",
-) -> list:
-    """Assemble haplotypes for one region. Returns [AssembledHaplotype],
-    reference haplotype first.
+) -> tuple:
+    """One region's graphs and their k-best paths, before any CIGAR:
+    (the window's bytes, the candidate haplotypes [(score, bases, kmer
+    size)] in the order the paths came, each bases once and none equal to
+    the window).  A candidate whose CIGAR fails is dropped by
+    :func:`haplotypes_from_candidates`; a later path with its bases would
+    fail the same way.
 
     ``ref_seq`` is the padded reference window; reads must already be
     clipped to it (read coordinates are not used here, only bases/quals).
@@ -1041,9 +1073,7 @@ def assemble_region(
         coverage = total_bases / max(denom, 1)
         prune_factor = 2 if coverage > PRUNE_FACTOR_COVERAGE_THRESHOLD else 0
 
-    haplotypes = {}
-    ref_hap = AssembledHaplotype(ref_bytes, [("M", len(ref_bytes))], 0.0, True, 0)
-    haplotypes[ref_bytes] = ref_hap
+    candidates = {ref_bytes: None}     # bases -> (score, bases, k)
 
     sizes = list(kmer_sizes)
     # density-keyed additional kmer sizes for busy regions
@@ -1168,14 +1198,7 @@ def assemble_region(
             scored = [(score, graph._seq_of(path))
                       for score, path in find_best_haplotypes(graph, max_paths)]
         for score, bases in scored:
-            if bases in haplotypes:
-                continue
-            cigar = calculate_cigar(np.frombuffer(ref_bytes, np.uint8),
-                                    np.frombuffer(bases, np.uint8))
-            if cigar is None:
-                continue
-            # discard haplotypes whose alignment doesn't span the window
-            haplotypes[bases] = AssembledHaplotype(bases, cigar, score, False, k)
+            if bases not in candidates:
+                candidates[bases] = (score, bases, k)
 
-    out = [ref_hap] + [h for b, h in haplotypes.items() if not h.is_ref]
-    return out
+    return ref_bytes, [c for c in candidates.values() if c is not None]

@@ -20,7 +20,9 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from lorikeet_tpu_torch.assembly.graph import assemble_region
+from lorikeet_tpu_torch.assembly.graph import (
+    assemble_candidates, haplotypes_from_candidates,
+)
 from lorikeet_tpu_torch.calling.events import (
     build_event_map, create_allele_mapper, events_at_locus, merge_events,
 )
@@ -224,6 +226,28 @@ class RegionWork:
     pairs: list
     index: list
     given_alleles: list = None  # features-VCF contexts for forced calling
+
+
+@dataclass
+class RegionDraft:
+    """An active region after its graphs and their k-best paths, before its
+    haplotypes' CIGARs: a span computes the CIGARs of all its regions
+    together (processing._call_span), then completes each."""
+    ref_window: np.ndarray
+    window_start: int
+    active_start: int
+    active_end: int
+    tid: int
+    reads_by_sample: dict
+    given_alleles: list
+    ref_bytes: bytes
+    candidates: list            # [(score, bases, kmer size)]
+
+    def cigar_pairs(self) -> list:
+        """(window, candidate bases) for each candidate's CIGAR."""
+        ref = np.frombuffer(self.ref_bytes, np.uint8)
+        return [(ref, np.frombuffer(bases, np.uint8))
+                for _, bases, _ in self.candidates]
 
 
 # GLs summing above this are treated as non-informative -> forced no-call
@@ -678,7 +702,26 @@ class HaplotypeCallerEngine:
         (assembly_based_caller_utils.rs:376-556).  With ``finalized`` the
         caller already ran the finalize_regions pipeline (the chunk loop
         uses the native columnar finalizer, clipping.py
-        finalize_region_reads_columnar)."""
+        finalize_region_reads_columnar).  :meth:`draft_region`, the
+        candidates' CIGARs on the host, :meth:`complete_region`."""
+        from lorikeet_tpu_torch.utils.cigar import calculate_cigars
+        draft = self.draft_region(ref_window, window_start, active_start,
+                                  active_end, reads_by_sample, tid,
+                                  given_alleles, activity_density, finalized)
+        if draft is None:
+            return None
+        with _prog.substage("assemble"):
+            cigars, _ = calculate_cigars(draft.cigar_pairs())
+        return self.complete_region(draft, cigars)
+
+    def draft_region(
+        self, ref_window, window_start, active_start, active_end,
+        reads_by_sample, tid=0, given_alleles=None, activity_density=0.0,
+        finalized=False,
+    ):
+        """:meth:`prepare_region` up to the candidate haplotypes: finalize
+        reads, the mapping-quality gate, the graphs and their k-best paths.
+        Returns a RegionDraft or None when nothing to call."""
         if not any(reads_by_sample.values()):
             return None
         if not finalized:
@@ -704,9 +747,9 @@ class HaplotypeCallerEngine:
                 for s, reads in reads_by_sample.items()}
         if not any(reads_by_sample.values()):
             return None
-        # the graph build, its k-best paths and the haplotypes' CIGARs
+        # the graph build and its k-best paths (the CIGARs: the caller's)
         with _prog.substage("assemble"):
-            haplotypes = assemble_region(
+            ref_bytes, candidates = assemble_candidates(
                 ref_window, reads_by_sample,
                 kmer_sizes=self.cfg.kmer_sizes,
                 min_base_quality=self.cfg.min_base_quality,
@@ -729,6 +772,20 @@ class HaplotypeCallerEngine:
                                   else activity_density),
                 dot_path=self.cfg.graph_output,
                 dot_prefix=f"tid{tid}_pos{window_start}_")
+        return RegionDraft(ref_window, window_start, active_start, active_end,
+                           tid, reads_by_sample, given_alleles, ref_bytes,
+                           candidates)
+
+    def complete_region(self, draft, cigars):
+        """:meth:`prepare_region` from a RegionDraft and its candidates'
+        CIGARs (None: dropped): event maps, trim, the pairs.  Returns a
+        RegionWork or None when nothing to call."""
+        ref_window, window_start = draft.ref_window, draft.window_start
+        active_start, active_end = draft.active_start, draft.active_end
+        tid, given_alleles = draft.tid, draft.given_alleles
+        reads_by_sample = draft.reads_by_sample
+        haplotypes = haplotypes_from_candidates(draft.ref_bytes,
+                                                draft.candidates, cigars)
         if len(haplotypes) <= 1 and not given_alleles:
             return None
 

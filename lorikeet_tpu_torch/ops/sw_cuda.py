@@ -19,13 +19,17 @@ bit-identical to lorikeet_tpu.ops.smith_waterman.align, the native aligner.
   pair of short reads) and a CTA per pair for longer ones.
   :func:`pack_pairs` orders the table by form, so a mixed batch is two
   launches, and every result comes back in the caller's order.
+- :func:`align_batch_rows` routes a batch as ``align_batch_cuda`` does and
+  hands only the kernel's packed chunks to a runner, which gives back each
+  chunk's CIGARs in :func:`compact`'s form: a pool worker sends its span's
+  haplotype pairs so to the parent's card.  Importing this module loads no
+  torch (the functions that need it import it), so those workers use it.
 """
 from __future__ import annotations
 
 import ctypes
 
 import numpy as np
-import torch
 
 from lorikeet_tpu_torch.ops.smith_waterman import (
     MATRIX_MIN_CUTOFF, OverhangStrategy, SWParameters, _CIGAR_OPS, _to_bytes,
@@ -54,6 +58,11 @@ SW_FORM_LAUNCHES = {"warp": 0, "cta": 0}
 SCRATCH_BUDGET = 1 << 30
 #: bytes of the plain version's diagonal-major backtrack tensor per chunk
 PLAIN_BT_BUDGET = 1 << 29
+
+#: the host sizes of pack_pairs' arrays that the kernel wrapper allocates
+#: and launches from (beside the table and the sequences)
+HOST_SIZES = ("n_warp", "rows_max", "warp_max", "cta_max", "scratch_len",
+              "cigar_len")
 
 _LOW = -(2 ** 30)        # LOW_INIT of the native aligner
 _MIN32 = -(2 ** 31)
@@ -128,6 +137,7 @@ def to_tensors(arrays: dict, device) -> dict:
     table and the sequences cross in one buffer and one copy, and ``meta``
     and ``seqs`` are views of it.  ``meta_host`` keeps the host's table for
     decoding."""
+    import torch
     meta, seqs = arrays["meta"], arrays["seqs"]
     buf = np.empty(meta.nbytes + seqs.nbytes, np.uint8)
     buf[:meta.nbytes] = meta.reshape(-1).view(np.uint8)
@@ -184,6 +194,7 @@ def _host_tail(strategy, seg, states, steps, p1, p2):
 
 def _plain_chunk(seqs, meta, parameters, strategy):
     """DP, start points and traceback of one chunk of pairs (plain torch)."""
+    import torch
     i32 = torch.int32
     dev = seqs.device
     w_match, w_mis = parameters.match_value, parameters.mismatch_penalty
@@ -311,6 +322,12 @@ def sw_align_torch(t: dict, parameters: SWParameters,
     """Plain torch version: (cigar, offset) per packed pair, computed on the
     device of ``t``'s tensors.  Pairs run in chunks whose diagonal-major
     backtrack tensor stays under PLAIN_BT_BUDGET bytes."""
+    return _caller_order(t, _plain_rows(t, parameters, strategy))
+
+
+def _plain_rows(t: dict, parameters: SWParameters, strategy: int) -> list:
+    """:func:`sw_align_torch`'s results in table order."""
+    import torch
     meta = t["meta"]
     m = meta.cpu().numpy()
     rl, al = m[:, 1], m[:, 3]
@@ -333,7 +350,7 @@ def sw_align_torch(t: dict, parameters: SWParameters,
         for k, r in zip(idx, chunk):
             results[k] = r
         lo = hi
-    return _caller_order(t, results)
+    return results
 
 
 _KERNEL = None
@@ -372,6 +389,7 @@ def _kernel() -> ctypes.CDLL:
 
 
 def _check_inputs(t: dict) -> None:
+    import torch
     seqs, meta = t["seqs"], t["meta"]
     for name, x, dtype, ndim in (("seqs", seqs, torch.uint8, 1),
                                  ("meta", meta, torch.int64, 2)):
@@ -392,6 +410,7 @@ def sw_kernel_launch(t: dict, parameters: SWParameters,
     """Launch csrc/sw.cu on the CUDA tensors of ``t``, once per form present
     in the table: returns one int32 tensor on the card, the [B, 2] (length,
     offset) table of the packed rows followed by the CIGAR codes."""
+    import torch
     global SW_LAUNCHES
     dev = t["seqs"].device
     if dev.type != "cuda":
@@ -426,18 +445,60 @@ def sw_kernel_launch(t: dict, parameters: SWParameters,
     return out
 
 
+def compact(out: np.ndarray, meta: np.ndarray) -> tuple:
+    """The kernel's output on the host -> (the [B, 2] int32 (length,
+    offset) of each table row, the rows' CIGAR codes back to back in row
+    order): each row's codes cut from the room ``meta`` gave it, by one
+    gather."""
+    B = meta.shape[0]
+    head = out[:2 * B].reshape(B, 2)
+    n = head[:, 0].astype(np.int64)
+    starts = np.repeat(meta[:, 5] - (np.cumsum(n) - n), n)
+    return head, out[2 * B:][starts + np.arange(starts.size)]
+
+
+def encode_rows(rows: list) -> tuple:
+    """(cigar, offset) per table row -> the (head, codes) of
+    :func:`compact`, as the kernel would have written them."""
+    head = np.array([(len(c), off) for c, off in rows],
+                    np.int32).reshape(-1, 2)
+    codes = np.array([(n << 4) | _CIGAR_OPS.index(op)
+                      for c, _ in rows for op, n in c], np.int32)
+    return head, codes
+
+
+def decode_rows(head: np.ndarray, codes: np.ndarray, order) -> list:
+    """:func:`compact`'s (head, codes) -> (cigar, offset) per pair in the
+    caller's order (``order``: pack_pairs'), decoded as
+    smith_waterman.align decodes the native codes."""
+    codes = codes.view(np.uint32).tolist()
+    out = [None] * len(order)
+    at = 0
+    for k, (n, offset) in zip(np.asarray(order).tolist(), head.tolist()):
+        out[k] = ([(_CIGAR_OPS[c & 0xF], c >> 4) for c in codes[at:at + n]],
+                  offset)
+        at += n
+    return out
+
+
 def decode(out: np.ndarray, t: dict) -> list:
     """The kernel's output on the host -> (cigar, offset) per pair in the
     caller's order, decoded as smith_waterman.align decodes the native
     codes."""
-    B = t["meta_host"].shape[0]
-    codes = out[2 * B:].view(np.uint32)
-    rows = []
-    for (n, offset), off in zip(out[:2 * B].reshape(B, 2).tolist(),
-                                t["meta_host"][:, 5].tolist()):
-        rows.append(([(_CIGAR_OPS[c & 0xF], c >> 4)
-                      for c in codes[off:off + n].tolist()], offset))
-    return _caller_order(t, rows)
+    return decode_rows(*compact(out, t["meta_host"]), t["order"])
+
+
+def sw_align_rows(t: dict, parameters: SWParameters, strategy: int) -> tuple:
+    """:func:`sw_align` in the form of :func:`compact` (rows in table
+    order): the kernel's output cut to its CIGARs on a CUDA device (one
+    copy back), the plain version's results encoded on the CPU."""
+    dev = t["seqs"].device
+    if dev.type == "cpu":
+        return encode_rows(_plain_rows(t, parameters, strategy))
+    if dev.type != "cuda":
+        raise ValueError(f"sw_align_rows: unsupported device {dev}")
+    return compact(sw_kernel_launch(t, parameters, strategy).cpu().numpy(),
+                   t["meta_host"])
 
 
 def sw_align(t: dict, parameters: SWParameters, strategy: int) -> list:
@@ -445,24 +506,27 @@ def sw_align(t: dict, parameters: SWParameters, strategy: int) -> list:
     the device of ``t``'s tensors: the CUDA kernel for a CUDA device (one
     copy back: lengths, offsets and CIGAR codes in one buffer), the plain
     version (:func:`sw_align_torch`) for the CPU."""
-    dev = t["seqs"].device
-    if dev.type == "cpu":
-        return sw_align_torch(t, parameters, strategy)
-    if dev.type != "cuda":
-        raise ValueError(f"sw_align: unsupported device {dev}")
-    return decode(sw_kernel_launch(t, parameters, strategy).cpu().numpy(), t)
+    return decode_rows(*sw_align_rows(t, parameters, strategy), t["order"])
 
 
-def align_batch_cuda(pairs, parameters: SWParameters,
-                     overhang_strategy: int = OverhangStrategy.SOFTCLIP,
-                     device=None) -> list:
-    """(cigar, offset) per (reference, alternate) pair, bit-identical to
-    smith_waterman.align.  The batched pairs run on ``device`` (default
-    SW_DEVICE) in chunks of at most SCRATCH_BUDGET bytes of scratch."""
-    device = torch.device(SW_DEVICE if device is None else device)
-    if device.type == "cuda":
-        from lorikeet_tpu_torch.device import require_cuda
-        require_cuda()
+def chunk_runner(device, parameters: SWParameters, strategy: int):
+    """The ``run_chunks`` of :func:`align_batch_rows` that runs each chunk
+    on ``device`` in this process."""
+    return lambda chunks: [sw_align_rows(to_tensors(c, device), parameters,
+                                         strategy) for c in chunks]
+
+
+def split_batch(pairs, parameters: SWParameters,
+                overhang_strategy: int = OverhangStrategy.SOFTCLIP,
+                counts=None) -> tuple:
+    """align_batch_cuda's routes, on the host: (the results, the
+    exact-substring shortcut's and the scalar ``align``'s of refs over
+    MAX_REF_LEN filled in and None elsewhere, the chunks [(indices into
+    ``pairs``, pack_pairs' arrays)] of the pairs for the kernel, each under
+    SCRATCH_BUDGET bytes of scratch).  Counts each route in ``counts``
+    (SW_COUNTS' keys) where given."""
+    if counts is None:
+        counts = dict.fromkeys(SW_COUNTS, 0)
     results = [None] * len(pairs)
     todo = []
     for k, (ref, alt) in enumerate(pairs):
@@ -472,15 +536,16 @@ def align_batch_cuda(pairs, parameters: SWParameters,
                                  OverhangStrategy.IGNORE):
             idx = ref_b.rfind(alt_b)
             if idx >= 0:
-                SW_COUNTS["shortcut"] += 1
+                counts["shortcut"] += 1
                 results[k] = ([("M", len(alt_b))], idx)
                 continue
         if len(ref_b) > MAX_REF_LEN:
-            SW_COUNTS["scalar_long"] += 1
+            counts["scalar_long"] += 1
             results[k] = align(ref_b, alt_b, parameters, overhang_strategy)
             continue
         todo.append((k, ref_b, alt_b))
-    SW_COUNTS["device"] += len(todo)
+    counts["device"] += len(todo)
+    chunks = []
     lo = 0
     while lo < len(todo):
         hi, used = lo, 0
@@ -491,9 +556,42 @@ def align_batch_cuda(pairs, parameters: SWParameters,
             used += need
             hi += 1
         chunk = todo[lo:hi]
-        t = to_tensors(pack_pairs([(r, a) for _, r, a in chunk]), device)
-        for (k, _, _), res in zip(chunk, sw_align(t, parameters,
-                                                  overhang_strategy)):
-            results[k] = res
+        chunks.append(([k for k, _, _ in chunk],
+                       pack_pairs([(r, a) for _, r, a in chunk])))
         lo = hi
-    return results
+    return results, chunks
+
+
+def align_batch_rows(pairs, parameters: SWParameters, overhang_strategy: int,
+                     run_chunks, counts=None) -> tuple:
+    """align_batch_cuda with the kernel's chunks handed to
+    ``run_chunks([pack_pairs' arrays])``, which returns
+    :func:`sw_align_rows`' (head, codes) for each: where the batch goes
+    to another process, only the arrays travel.  Numpy only.  Each route
+    is counted in ``counts`` where given.  Returns (the results, the pairs
+    the chunks held)."""
+    results, chunks = split_batch(pairs, parameters, overhang_strategy,
+                                  counts)
+    if chunks:
+        for (idx, arrays), (head, codes) in zip(
+                chunks, run_chunks([a for _, a in chunks])):
+            for k, res in zip(idx, decode_rows(head, codes,
+                                                arrays["order"])):
+                results[k] = res
+    return results, sum(len(idx) for idx, _ in chunks)
+
+
+def align_batch_cuda(pairs, parameters: SWParameters,
+                     overhang_strategy: int = OverhangStrategy.SOFTCLIP,
+                     device=None) -> list:
+    """(cigar, offset) per (reference, alternate) pair, bit-identical to
+    smith_waterman.align.  The batched pairs run on ``device`` (default
+    SW_DEVICE) in chunks of at most SCRATCH_BUDGET bytes of scratch."""
+    import torch
+    device = torch.device(SW_DEVICE if device is None else device)
+    if device.type == "cuda":
+        from lorikeet_tpu_torch.device import require_cuda
+        require_cuda()
+    return align_batch_rows(
+        pairs, parameters, overhang_strategy,
+        chunk_runner(device, parameters, overhang_strategy), SW_COUNTS)[0]

@@ -15,15 +15,18 @@ region fan-out under the global pool of src/bin/lorikeet.rs:29-32).  Here:
   grouped kernel, its table blocks split over the list (``"lk"``); when the
   run takes the device activity chain (``cfg.device_activity``), every
   span's chain, split by position over the same list (``"act"``; the CPU
-  under ``--force-cpu``); and, under
-  ``--pallas-sw``, every realignment SW batch on the SW kernel, on the
-  first card (``"sw"``).  A worker packs its batch on its own CPU
+  under ``--force-cpu``); on a run on cards, each span's haplotype
+  CIGARs' SW (``"hsw"``: processing._span_hap_cigars) on the SW kernel,
+  on the first card; and, under ``--pallas-sw``, every realignment SW
+  batch there too (``"sw"``).  A worker packs its batch on its own CPU
   (``prepare_grouped_jobs``), sends it, prepares its next span while the
   card computes, then genotypes on the reply: one outstanding request per
   worker, replies in the order each worker sent its requests.  A pair
   batch's arrays travel in a shared-memory segment the worker owns, only
   their header on the pipe (``parallel.shm``); the service maps the batch
-  while it enqueues it.  ``"act"`` and ``"sw"`` requests are pickled.
+  while it enqueues it.  A ``"hsw"`` batch travels so too, and its reply
+  is the kernel's CIGAR codes, which the worker decodes.  ``"act"`` and
+  ``"sw"`` requests are pickled.
 - A worker packs in the wire form (4-bit bases and a u8 codebook index a
   lane, decoded on the card) when the parent's gate says so
   (``pairhmm_cuda._wire_enabled``: ``LORIKEET_WIRE_COMPRESS``, or under
@@ -85,12 +88,15 @@ SERVICE_DEPTH = 2
 ROUTE_ENV = ("LORIKEET_REMOTE_ROUTE", "LORIKEET_WIRE_COMPRESS")
 #: requests the workers sent to the device service, added up by
 #: ``gather``: pair batches, those of them that went through the worker's
-#: shared-memory segment, SW batches, spans' activity chains; and what the
-#: pair batches held: read rows, those of long-read samples, lanes (the
-#: planes' rows, pad rows included, times Rpad) and the read bases in them
+#: shared-memory segment, SW batches, spans' activity chains, spans'
+#: haplotype SW batches; what the pair batches held: read rows, those of
+#: long-read samples, lanes (the planes' rows, pad rows included, times
+#: Rpad) and the read bases in them; and the spans' haplotype CIGARs, the
+#: SW alignments they took and those the card ran (processing.HAP_COUNTS)
 WORKER_COUNTS = {"lk_batches": 0, "lk_shm_batches": 0, "sw_batches": 0,
-                 "act_spans": 0, "lk_rows": 0, "lk_long_rows": 0,
-                 "lk_slots": 0, "lk_bases": 0}
+                 "act_spans": 0, "hsw_batches": 0, "lk_rows": 0,
+                 "lk_long_rows": 0, "lk_slots": 0, "lk_bases": 0,
+                 "hap_cigars": 0, "hap_sw": 0, "hap_sw_card": 0}
 #: spans ``gather_contig`` ran again because a deletion carried from the
 #: spans before covered a site there
 SPAN_RERUNS = {"spans": 0}
@@ -104,12 +110,14 @@ _SPAWN_LOCK = threading.Lock()
 _FOREIGN = ("jax", "jaxlib", "lorikeet_tpu", "bench_e2e")
 
 
-def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire):
+def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire,
+                 hap_sw):
     """Worker process entry: persistent readers, span loop.  With
     ``rpc_conn`` the pair-HMM batches of a ``use_cuda`` run (in the wire
-    form when ``wire``), the activity chains of a ``device_activity`` run
-    and the SW batches of a ``use_cuda_sw`` run go to the parent's device
-    service.
+    form when ``wire``), the haplotype SW batches of its spans when
+    ``hap_sw`` (the parent's ``processing._hap_sw_device``), the activity
+    chains of a ``device_activity`` run and the SW batches of a
+    ``use_cuda_sw`` run go to the parent's device service.
     Readers are cached per (fasta, bams) input set so one pool serves many
     genomes without re-decoding.  ``t_spawn`` is the parent's clock at the
     spawn, for the worker's start-up seconds.  It holds no card: the
@@ -204,25 +212,51 @@ def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire):
         sent["sw_batches"] += 1
         return _service("sw", (pairs, parameters, strategy))
 
-    def _device_activity(*args):
-        # a span's activity chain runs before its pair batch is sent, while
-        # the span before may still wait on its "lk" reply: that reply
-        # comes first on the pipe, so it is taken (and that span genotyped)
-        # before this request goes out
+    def _take_pending():
+        # a span's activity chain and its haplotype SW run before its pair
+        # batch is sent, while the span before may still wait on its "lk"
+        # reply: that reply comes first on the pipe, so it is taken (and
+        # that span genotyped) before such a request goes out
         nonlocal pending
         if pending is not None:
             _finish(pending)
             pending = None
+
+    def _device_activity(*args):
+        _take_pending()
         sent["act_spans"] += 1
         return _service("act", args)
+
+    def _device_hap_sw(pairs, parameters, strategy):
+        def run(chunks):
+            # each chunk's packed table and sequences through the segment,
+            # its host sizes in the header; the reply is each chunk's
+            # CIGARs in sw_cuda.compact's form
+            arrays = {"sizes": [{k: c[k] for k in HOST_SIZES}
+                                for c in chunks],
+                      "parameters": parameters, "strategy": strategy}
+            for i, c in enumerate(chunks):
+                arrays[f"seqs.{i}"], arrays[f"meta.{i}"] = c["seqs"], \
+                    c["meta"]
+            segment.put(rpc_conn, "hsw", arrays, None)
+            sent["hsw_batches"] += 1
+            return _reply()
+        return align_batch_rows(pairs, parameters, strategy, run)
 
     if rpc_conn is not None:
         realign.DEVICE_SW_BATCH = _device_sw
         processing.DEVICE_ACTIVITY = _device_activity
+    if on_card and hap_sw:
+        from lorikeet_tpu_torch.ops.sw_cuda import HOST_SIZES, align_batch_rows
+        processing.DEVICE_HAP_SW = _device_hap_sw
+        processing.DEVICE_READY = _take_pending
 
     def _put(tid, res, engine):
         geno = engine.genotyping
         res = (res, geno.deletion_checks, geno._upstream_dels)
+        for key, n in processing.HAP_COUNTS.items():
+            sent[key] += n
+            processing.HAP_COUNTS[key] = 0
         stages = progress.GLOBAL_STAGES
         counters = {"host": L.DISPATCH_COUNTS["host"],
                     "local": L.DISPATCH_COUNTS["local"],
@@ -440,6 +474,9 @@ class SpanWorkerPool:
         if device_service and cfg.use_cuda is not False:
             from lorikeet_tpu_torch.ops.pairhmm_cuda import _wire_enabled
             self.wire = _wire_enabled()
+        #: whether the workers send their spans' haplotype SW to the
+        #: service, which runs it on ``processing._hap_sw_device``
+        self.hap_sw = device_service and _hap_sw_on_service(cfg)
         self.workers = [self._spawn_worker() for _ in range(n_workers)]
         if device_service and self._conns:
             self._service_thread = threading.Thread(
@@ -458,7 +495,7 @@ class SpanWorkerPool:
         p = self._ctx.Process(
             target=_worker_main,
             args=(wid, self._cfg, self.task_q, self.result_q, child_c,
-                  time.time(), self.wire),
+                  time.time(), self.wire, self.hap_sw),
             daemon=True)
         # the child inherits the environment at start(): an empty
         # CUDA_VISIBLE_DEVICES there before any of its imports run.  The
@@ -516,10 +553,11 @@ class SpanWorkerPool:
 
     # ---- parent-side device service ---------------------------------------
     def _serve_device(self):
-        """Serve the workers' "lk", "act" and "sw" requests on the
+        """Serve the workers' "lk", "act", "hsw" and "sw" requests on the
         parent's cards: "lk" split over the run's device list, on a CUDA
         stream of this thread's own for each position in the list (a card
-        listed twice gets two); "act" over the same list; "sw" on the
+        listed twice gets two); "act" over the same list; "hsw" (a span's
+        haplotype SW, its chunks in the worker's segment) and "sw" on the
         first card.  The list is read at each request: a pool outlives the
         run that started it.  Keeps SERVICE_DEPTH "lk" jobs enqueued
         before it waits on the oldest.  A batch under LORIKEET_PALLAS_ROUTE=host gets
@@ -530,7 +568,9 @@ class SpanWorkerPool:
 
         import torch
 
+        from lorikeet_tpu_torch import processing
         from lorikeet_tpu_torch.calling import likelihoods as L
+        from lorikeet_tpu_torch.ops import _build
         from lorikeet_tpu_torch.ops import pairhmm_cuda as PC
         from lorikeet_tpu_torch.ops import sw_cuda as SC
         from lorikeet_tpu_torch.parallel import pipeline
@@ -540,6 +580,7 @@ class SpanWorkerPool:
 
         streams = {}                       # (position, device) -> stream
         inflight = []                      # [(conn, handle)] in send order
+        built = []                         # K2 and K3 built (hap_device)
 
         def stream_of(position, device):
             """This thread's stream for ``device`` at ``position`` (None
@@ -564,6 +605,37 @@ class SpanWorkerPool:
                     conn.send(msg)
             except OSError:
                 pass   # the worker died; gather requeues its span
+
+        def hap_sw(batch):
+            """A span's haplotype SW chunks on the SW kernel's device, on
+            this thread's stream there: each chunk's CIGARs in
+            sw_cuda.compact's form, for the worker to decode."""
+            a = batch.arrays
+            parameters, strategy = a["parameters"], a["strategy"]
+            device = hap_device()
+            with on_stream(device):
+                # each chunk copied out of the segment (the table kept on
+                # the host for the cut), which is then the worker's again
+                tensors = [SC.to_tensors(
+                    {**sizes, "seqs": a[f"seqs.{i}"],
+                     "meta": a[f"meta.{i}"].copy()}, device)
+                    for i, sizes in enumerate(a["sizes"])]
+                del a
+                batch.close()
+                return [SC.sw_align_rows(t, parameters, strategy)
+                        for t in tensors]
+
+        def hap_device():
+            device = processing._hap_sw_device(self._cfg)
+            if device is None:
+                raise RuntimeError("a haplotype SW batch, but the run "
+                                   "takes its SW on the host")
+            if device.type == "cuda" and not built:
+                # K3 with K2, one nvcc each, started together, in the
+                # first request: the warm-up call's, never the window's
+                _build.load_all(("pairhmm", "sw"))
+                built.append(True)
+            return device
 
         def finish(item):
             conn, handle = item
@@ -601,7 +673,7 @@ class SpanWorkerPool:
                     with global_stage("service.recv"):
                         kind, payload, tid = conn.recv()
                         annotate(kind=kind, tid=tid)
-                        if kind == "lk":
+                        if kind in ("lk", "hsw"):
                             batch = self._segments.receive(conn, payload)
                 except (EOFError, OSError):
                     closed.add(conn)
@@ -641,6 +713,8 @@ class SpanWorkerPool:
                             *args, max_prob_propagation=prop,
                             devices=_activity_devices(self._cfg))
                         reply(conn, ("ok", smoothed))
+                    elif kind == "hsw":
+                        reply(conn, ("ok", hap_sw(batch)))
                     elif kind == "sw":
                         pairs, parameters, strategy = payload
                         with on_stream(torch.device(SC.SW_DEVICE)):
@@ -806,6 +880,14 @@ def carry_deletions(carried: list, checks: list) -> tuple:
     return carried, covered
 
 
+def _hap_sw_on_service(cfg) -> bool:
+    """Whether a span's haplotype SW runs on the service's card (the
+    parent's ``processing._hap_sw_device``) rather than on the worker's
+    host."""
+    from lorikeet_tpu_torch import processing
+    return processing._hap_sw_device(cfg) is not None
+
+
 def _add_counters(counters: dict):
     """A worker result's counters into the parent's own."""
     from lorikeet_tpu_torch.calling import likelihoods as L
@@ -838,10 +920,11 @@ def get_pool(fasta_path: str, bam_paths: list, cfg, n_workers: int,
     from lorikeet_tpu_torch.processing import _cfg_fingerprint
     # the workers read the device chain's switch from the cfg they were
     # spawned with, and it is not a field of the fingerprint; the pool
-    # reads ROUTE_ENV when it starts
+    # reads ROUTE_ENV and where the haplotype SW runs when it starts
     key = (_cfg_fingerprint(cfg), getattr(cfg, "device_activity", False),
            n_workers, device_service,
-           tuple(os.environ.get(k) for k in ROUTE_ENV))
+           tuple(os.environ.get(k) for k in ROUTE_ENV),
+           device_service and _hap_sw_on_service(cfg))
     pool = _POOLS.get(key)
     if pool is not None:
         try:

@@ -11,11 +11,14 @@ only while it enqueues it (``Batch``).  A ``memfd`` has no name and lives
 on no mounted file system, so the size of ``/dev/shm`` (often 64 MB in a
 container, where a write past it is a ``SIGBUS``) does not bound it.
 
+A span's haplotype SW batch (``"hsw"``: each chunk's packed table and
+sequences) travels the same way.
+
 Reuse is safe by the pool's order, not by a lock: a worker has at most one
-``"lk"`` request outstanding and takes its reply before it sends the next,
-and the service replies only after it has copied the batch out of the
-segment (``enqueue_grouped_jobs`` pins every array before it returns) and
-unmapped it."""
+request outstanding and takes its reply before it sends the next, and the
+service replies only after it has copied the batch out of the segment
+(``enqueue_grouped_jobs`` pins every array before it returns) and unmapped
+it."""
 from __future__ import annotations
 
 import mmap
@@ -65,20 +68,33 @@ class WorkerSegment:
         the segment, then its header on ``conn`` as ``("lk", header,
         tid)``, and after it a new segment's descriptor."""
         arrays, out_pos = job
+        self.put(conn, "lk", arrays, tid, out_pos)
+
+    def put(self, conn, kind, arrays, tid, out_pos=None):
+        """The numpy arrays of ``arrays`` into the segment (its other
+        values ride in the header's ``extra``), then the header on
+        ``conn`` as ``(kind, header, tid)``, and after it a new segment's
+        descriptor."""
         entries = [(k, v) for k, v in arrays.items()
-                   if isinstance(v, np.ndarray)] + [("out_pos", out_pos)]
+                   if isinstance(v, np.ndarray)]
+        if out_pos is not None:
+            entries.append(("out_pos", out_pos))
         layout, nbytes = _layout(entries)
         new = self._mm is None or nbytes > len(self._mm)
         if new:
             self._grow(nbytes)
         for (_, dtype, shape, off), (_, v) in zip(layout, entries):
             _view(self._mm, dtype, shape, off)[...] = v
+        if out_pos is not None:
+            layout, out_layout = layout[:-1], layout[-1]
+        else:
+            out_layout = None
         header = {"segment": (os.getpid(), self._serial),
                   "size": len(self._mm), "new": new, "nbytes": nbytes,
-                  "arrays": layout[:-1], "out_pos": layout[-1],
+                  "arrays": layout, "out_pos": out_layout,
                   "extra": {k: v for k, v in arrays.items()
                             if not isinstance(v, np.ndarray)}}
-        conn.send(("lk", header, tid))
+        conn.send((kind, header, tid))
         if new:
             send_handle(conn, self._fd, os.getppid())
 
@@ -153,8 +169,9 @@ class ServiceSegments:
 
 class Batch:
     """One batch mapped from its worker's segment: ``arrays`` (views of
-    the segment, the header's ``extra`` beside them) and ``out_pos`` (a
-    copy: it is read after the segment is unmapped)."""
+    the segment, the header's ``extra`` beside them) and a pair batch's
+    ``out_pos`` (a copy: it is read after the segment is unmapped; None
+    for other kinds)."""
 
     def __init__(self, fd: int, header: dict):
         self._mm = mmap.mmap(fd, max(header["nbytes"], 1),
@@ -162,7 +179,8 @@ class Batch:
         self.arrays = dict(header["extra"])
         for key, dtype, shape, off in header["arrays"]:
             self.arrays[key] = _view(self._mm, dtype, shape, off)
-        self.out_pos = _view(self._mm, *header["out_pos"][1:]).copy()
+        self.out_pos = None if header["out_pos"] is None else _view(
+            self._mm, *header["out_pos"][1:]).copy()
 
     def close(self, strict: bool = True):
         """Unmap.  ``strict``: a view of the segment still alive (kept past

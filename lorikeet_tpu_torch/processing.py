@@ -276,6 +276,81 @@ def _activity_devices(cfg) -> list:
 #: ``DEVICE_ACTIVITY(gls, hq_mean, ploidy, snp_heterozygosity,
 #: heterozygosity_stdev, stand_min_conf, max_prob_propagation)``
 DEVICE_ACTIVITY = None
+#: in a -t pool worker of a run whose haplotype SW is on the card
+#: (parallel/pool.py): sends a span's haplotype SW batch to the parent's
+#: device service, called as ``DEVICE_HAP_SW(pairs, parameters,
+#: strategy)`` -> ([(cigar, offset)], pairs the kernel aligned), after
+#: ``DEVICE_READY()``, which takes any reply the worker still waits on
+DEVICE_HAP_SW = None
+DEVICE_READY = None
+#: the haplotype CIGARs this process's spans computed, the SW alignments
+#: they took (the pairs past calculate_cigar's trivial cases; equal pairs
+#: of a span share one) and those of them the SW kernel ran; a pool
+#: worker ships them with each result (parallel/pool.py WORKER_COUNTS)
+HAP_COUNTS = {"hap_cigars": 0, "hap_sw": 0, "hap_sw_card": 0}
+
+
+def _hap_sw_device(cfg):
+    """The device of a span's haplotype SW batch: the SW kernel's
+    (``sw_cuda.SW_DEVICE``) on a run on cards; None, the native aligner a
+    pair at a time, on the host (``use_cuda`` False) and where CPU devices
+    stand in for the cards.  Asked in the parent only; tests that want the
+    kernel's plain version on this path make it return the CPU."""
+    if getattr(cfg, "use_cuda", None) is False:
+        return None
+    import torch
+
+    from lorikeet_tpu_torch.ops import sw_cuda
+    from lorikeet_tpu_torch.parallel.sharding import get_devices
+    device = torch.device(sw_cuda.SW_DEVICE)
+    if device.type == "cuda" and any(d.type == "cuda"
+                                     for d in get_devices()):
+        return device
+    return None
+
+
+def _span_hap_cigars(cfg, drafts) -> list:
+    """The CIGARs of each draft's candidates (engine.RegionDraft), their
+    SW in one batch for the whole span: on the parent's card through
+    DEVICE_HAP_SW in a pool worker, on ``_hap_sw_device`` in the parent,
+    else on the native host aligner.  Timed under the ``assemble``
+    sub-stage; the batch's pack, send, wait and decode also as the span
+    ``asm.hap_sw``."""
+    from lorikeet_tpu_torch.utils import progress as _prog
+    from lorikeet_tpu_torch.utils.cigar import calculate_cigars
+    pairs = [p for d in drafts for p in d.cigar_pairs()]
+    if DEVICE_HAP_SW is not None:
+        send = DEVICE_HAP_SW
+        if pairs:
+            DEVICE_READY()
+    elif _prog.WORKER is None and (device := _hap_sw_device(cfg)) is not None:
+        from lorikeet_tpu_torch.ops import sw_cuda
+
+        def send(padded, parameters, strategy):
+            return sw_cuda.align_batch_rows(
+                padded, parameters, strategy,
+                sw_cuda.chunk_runner(device, parameters, strategy))
+    else:
+        send = None
+    card = 0
+
+    def batch(padded, parameters, strategy):
+        nonlocal card
+        with _prog.global_stage(
+                "asm.hap_sw", pairs=len(padded),
+                bytes=sum(r.size + a.size for r, a in padded)):
+            aligned, card = send(padded, parameters, strategy)
+        return aligned
+    with _prog.substage("assemble"):
+        cigars, n_sw = calculate_cigars(pairs, batch if send else None)
+    HAP_COUNTS["hap_cigars"] += len(pairs)
+    HAP_COUNTS["hap_sw"] += n_sw
+    HAP_COUNTS["hap_sw_card"] += card
+    out, at = [], 0
+    for d in drafts:
+        out.append(cigars[at:at + len(d.candidates)])
+        at += len(d.candidates)
+    return out
 
 
 def _configure_devices(cfg):
@@ -478,7 +553,7 @@ def _call_span(fasta, bams, contig_name, cfg, engine, lo, hi,
                     np.fromiter((r.pos for r in rs), np.int64, len(rs)),
                     np.fromiter((r.reference_end for r in rs), np.int64,
                                 len(rs))))
-        works = []
+        works, drafts = [], []
         for region in regions:
             if not region.is_active:
                 continue
@@ -535,12 +610,19 @@ def _call_span(fasta, bams, contig_name, cfg, engine, lo, hi,
             # over smoothed probs > 0.05)
             span_probs = smoothed[region.start:region.end + 1]
             density = float(np.mean(span_probs > 0.05)) if len(span_probs) else 0.0
-            work = engine.prepare_region(window, pad_start, active_start,
-                                         active_end, reads_by_sample,
-                                         tid=result.tid,
-                                         given_alleles=given_here,
-                                         activity_density=density,
-                                         finalized=True)
+            draft = engine.draft_region(window, pad_start, active_start,
+                                        active_end, reads_by_sample,
+                                        tid=result.tid,
+                                        given_alleles=given_here,
+                                        activity_density=density,
+                                        finalized=True)
+            if draft is not None:
+                drafts.append(draft)
+        # every region's haplotype CIGARs at once, their SW one batch of
+        # the span (on the card where the run has one), then each region
+        # on to its events, trim and pairs
+        for draft, cigars in zip(drafts, _span_hap_cigars(cfg, drafts)):
+            work = engine.complete_region(draft, cigars)
             if work is not None:
                 works.append(work)
     if defer:

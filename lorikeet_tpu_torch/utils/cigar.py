@@ -442,32 +442,38 @@ def left_align_indels(cigar, ref: np.ndarray, read: np.ndarray, ref_offset: int 
             builder.trailing_deletion_bases_removed)
 
 
-def calculate_cigar(ref_seq: np.ndarray, alt_seq: np.ndarray,
-                    strategy=None, params=None):
-    """Haplotype-vs-reference CIGAR (cigar_utils.rs:358-457): trivial cases,
-    then N-padded SW + pad trimming + indel left-alignment."""
-    from lorikeet_tpu_torch.ops.smith_waterman import (
-        align, NEW_SW_PARAMETERS, OverhangStrategy)
-    if params is None:
-        params = NEW_SW_PARAMETERS
-    if strategy is None:
-        strategy = OverhangStrategy.SOFTCLIP
-    ref_seq = np.asarray(ref_seq, np.uint8)
-    alt_seq = np.asarray(alt_seq, np.uint8)
+#: N bases on each side of a haplotype CIGAR's SW pair (cigar_utils.rs:393)
+SW_PAD = 10
+
+
+def trivial_cigar(ref_seq: np.ndarray, alt_seq: np.ndarray):
+    """calculate_cigar's cases that take no alignment: an empty alternate,
+    or one of the reference's length with at most two mismatches.  None
+    for every other pair."""
     if alt_seq.size == 0:
         return [("D", int(ref_seq.size))]
     if alt_seq.size == ref_seq.size:
         mismatches = int(np.count_nonzero(alt_seq != ref_seq))
         if mismatches <= 2:
             return [("M", int(ref_seq.size))]
-    pad = np.full(10, ord("N"), np.uint8)
-    padded_ref = np.concatenate([pad, ref_seq, pad])
-    padded_alt = np.concatenate([pad, alt_seq, pad])
-    cigar, offset = align(padded_ref, padded_alt, params, strategy)
+    return None
+
+
+def sw_padded(seq: np.ndarray) -> np.ndarray:
+    """``seq`` between SW_PAD Ns on each side, as calculate_cigar aligns it."""
+    pad = np.full(SW_PAD, ord("N"), np.uint8)
+    return np.concatenate([pad, seq, pad])
+
+
+def cigar_from_alignment(ref_seq: np.ndarray, alt_seq: np.ndarray,
+                         cigar, offset):
+    """calculate_cigar's end from the (CIGAR, offset) of the padded pair's
+    SW: None on an SW failure, else the pads trimmed and the indels
+    left-aligned."""
     if offset != 0 or any(op == "S" for op, _ in cigar):
         return None  # SW failure (is_s_w_failure)
     trimmed, lead_del, trail_del = trim_cigar_by_bases(
-        cigar, 10, len(padded_alt) - 11)
+        cigar, SW_PAD, alt_seq.size + SW_PAD - 1)
     # restore trailing deletions for left-alignment; it may remove them
     # again and report them (cigar_utils.rs:421-456)
     if trail_del > 0:
@@ -482,3 +488,55 @@ def calculate_cigar(ref_seq: np.ndarray, alt_seq: np.ndarray,
     if la_trail > 0:
         out.append(("D", la_trail))
     return merge_adjacent(out)
+
+
+def calculate_cigar(ref_seq: np.ndarray, alt_seq: np.ndarray,
+                    strategy=None, params=None):
+    """Haplotype-vs-reference CIGAR (cigar_utils.rs:358-457): trivial cases,
+    then N-padded SW + pad trimming + indel left-alignment."""
+    from lorikeet_tpu_torch.ops.smith_waterman import (
+        align, NEW_SW_PARAMETERS, OverhangStrategy)
+    if params is None:
+        params = NEW_SW_PARAMETERS
+    if strategy is None:
+        strategy = OverhangStrategy.SOFTCLIP
+    ref_seq = np.asarray(ref_seq, np.uint8)
+    alt_seq = np.asarray(alt_seq, np.uint8)
+    cigar = trivial_cigar(ref_seq, alt_seq)
+    if cigar is not None:
+        return cigar
+    return cigar_from_alignment(
+        ref_seq, alt_seq,
+        *align(sw_padded(ref_seq), sw_padded(alt_seq), params, strategy))
+
+
+def calculate_cigars(pairs, align_batch=None) -> tuple:
+    """calculate_cigar (NEW_SW_PARAMETERS, SOFTCLIP) of each (ref, alt)
+    pair, the SW of every pair past the trivial cases in one call of
+    ``align_batch(padded_pairs, params, strategy)``, which returns a
+    (CIGAR, offset) each; equal pairs share one alignment.  Without
+    ``align_batch``, the native aligner a pair at a time.  Returns (the
+    CIGARs, the number of alignments made)."""
+    from lorikeet_tpu_torch.ops.smith_waterman import (
+        align, NEW_SW_PARAMETERS, OverhangStrategy)
+    params, strategy = NEW_SW_PARAMETERS, OverhangStrategy.SOFTCLIP
+    pairs = [(np.asarray(r, np.uint8), np.asarray(a, np.uint8))
+             for r, a in pairs]
+    cigars = [trivial_cigar(r, a) for r, a in pairs]
+    slot = {}                           # (ref, alt) bytes -> padded index
+    padded, todo = [], []
+    for k, (ref, alt) in enumerate(pairs):
+        if cigars[k] is not None:
+            continue
+        key = (ref.tobytes(), alt.tobytes())
+        if key not in slot:
+            slot[key] = len(padded)
+            padded.append((sw_padded(ref), sw_padded(alt)))
+        todo.append((k, slot[key]))
+    if align_batch is None:
+        aligned = [align(r, a, params, strategy) for r, a in padded]
+    else:
+        aligned = align_batch(padded, params, strategy) if padded else []
+    for k, j in todo:
+        cigars[k] = cigar_from_alignment(*pairs[k], *aligned[j])
+    return cigars, len(padded)

@@ -257,12 +257,16 @@ ORIGINAL_DIR = os.path.join(REPO, "lorikeet_tpu")
 #: files of the same name whose code differs on purpose: the torch
 #: counterparts of the JAX modules, the loader that builds into build/, the
 #: modules of which the port keeps only the part without jax, and the strain
-#: layer's clustering, which imports the port's HDBSCAN for scikit-learn's
+#: layer's clustering, which imports the port's HDBSCAN for scikit-learn's;
+#: and the assembly's graph and the CIGAR helpers, split so that a span
+#: computes its regions' haplotype CIGARs together
+#: (tests/test_torch_hap_cigar.py holds their outputs to the originals')
 NOT_COPIES = {
     "cli.py", "processing.py", "ops/pairhmm.py", "calling/engine.py",
     "calling/likelihoods.py", "calling/realign.py", "parallel/hosts.py",
     "parallel/pipeline.py", "parallel/pool.py", "parallel/sharding.py",
     "native/__init__.py", "utils/progress.py", "strain/genotype_mode.py",
+    "assembly/graph.py", "utils/cigar.py",
 }
 
 
@@ -314,7 +318,7 @@ def test_the_copies_are_the_files_expected():
     copies = set(shared) - NOT_COPIES
     assert len(copies) >= 55
     assert {"native/pairhmm.cpp", "native/sw.cpp", "io/bai.py",
-            "models/af_calc.py", "strain/umap.py", "assembly/graph.py",
+            "models/af_calc.py", "strain/umap.py", "assembly/seq_graph.py",
             "testkit/simulate.py"} <= copies
 
 

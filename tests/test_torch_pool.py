@@ -211,13 +211,18 @@ def test_service_over_devices_and_activity(genome80, plain_devices,
     assert pooled.depth_pass_rle == serial.depth_pass_rle
     assert sorted(set(cards)) == list(range(n_devices))
     # each device's share holds the batch's whole planes
-    assert pool_mod.WORKER_COUNTS == {"lk_batches": 1, "lk_shm_batches": 1,
-                                      "sw_batches": 0,
-                                      "act_spans": int(activity),
-                                      "lk_rows": int((lens[0] > 0).sum()),
-                                      "lk_long_rows": 0,
-                                      "lk_slots": lanes[0],
-                                      "lk_bases": int(lens[0].sum())}
+    counts = dict(pool_mod.WORKER_COUNTS)
+    hap = {k: counts.pop(k) for k in ("hap_cigars", "hap_sw", "hap_sw_card")}
+    assert counts == {"lk_batches": 1, "lk_shm_batches": 1,
+                      "sw_batches": 0, "act_spans": int(activity),
+                      "hsw_batches": 0,
+                      "lk_rows": int((lens[0] > 0).sum()),
+                      "lk_long_rows": 0,
+                      "lk_slots": lanes[0],
+                      "lk_bases": int(lens[0].sum())}
+    # CPU devices in the cards' place: the haplotype SW on the workers'
+    # hosts
+    assert hap["hap_cigars"] >= hap["hap_sw"] > 0 == hap["hap_sw_card"]
     reports = [pool_mod.WORKER_REPORTS.get(w.pid) for w in pool.workers]
     assert any(reports)
     assert not any(r["torch_imported"] for r in reports if r)
