@@ -40,14 +40,22 @@ Phases, one JSON line each; any failure exits non-zero without the final
            samples x 30x genome, in turns after a short warm-up run: a card
            leg with the SW on the card (--pallas-sw), the exact f64 host
            pair-HMM (--force-cpu), the f64 pair-HMM with the SW on the card
-           (--force-cpu --pallas-sw), the default card leg (native host
-           SW), then a card leg with the device activity chain
+           (--force-cpu --pallas-sw), the default card leg (the realignment
+           on the native host SW), the default card leg with the haplotype
+           CIGARs' SW on the native host aligner too (`gpu_hosthap`), then
+           a card leg with the device activity chain
            (LORIKEET_DEVICE_ACTIVITY=1).  Same sites, alleles and genotypes,
            QUAL within 0.1, recall >= 0.99, every pair-HMM batch of a card
            leg on the card, realignment pairs of a --pallas-sw leg on the SW
            kernel, every span's activity of the device-activity leg through
-           the device chain, and the VCFs byte-identical with and without
-           --pallas-sw (card legs; f64 legs).
+           the device chain; every span's haplotype CIGARs' SW one batch on
+           the SW kernel on the card legs (`hap_counts`: every SW pair on
+           the card; K3 launched by those batches alone without
+           --pallas-sw) and on the host on the f64 legs and `gpu_hosthap`,
+           the same CIGARs and SW pairs on every leg of the host's activity
+           chain; and the VCFs byte-identical with and without --pallas-sw
+           (card legs; f64 legs) and with the haplotype SW on the card and
+           on the host (`gpu_hosthap` and `gpu`).
 7. pool    three `call -t 4` legs on the same genome through the span-worker
            pool (four CPU workers; the parent's card serves their batches):
            the default card leg, --pallas-sw, --force-cpu.  Every output
@@ -56,7 +64,9 @@ Phases, one JSON line each; any failure exits non-zero without the final
            K2 launches and served batches plus one for each span rerun with
            the deletions carried from the span before); one served pair
            batch per span and none on a worker's host; the
-           workers' SW batches sent to the service; no worker with torch
+           workers' SW batches sent to the service; the -t 1 leg's
+           haplotype CIGARs and SW pairs, on a card leg each span's batch a
+           `"hsw"` request to the service's K3; no worker with torch
            imported, CUDA initialised or a module of jax or the JAX
            package; and while the
            workers are alive `nvidia-smi` lists one process on the card, and
@@ -173,7 +183,18 @@ Phases, one JSON line each; any failure exits non-zero without the final
            (flat_kernel line `main_path`).
 10. sw_main_path  the largest realignment SW batch of the first card leg,
            replayed: kernel, plain version and native aligner, all timed,
-           and the whole align_batch_cuda call (`call_ms`).
+           and the whole align_batch_cuda call (`call_ms`).  Then the
+           largest haplotype SW batch of the first card leg (N-padded
+           window/haplotype pairs, NEW_SW_PARAMETERS, SOFTCLIP) against
+           the plain version and the native aligner (`sw_main_path` line
+           `hap_main_path`).
+10b. hap_span  one dense span (portbench's short configuration, a 40 kbp
+           contig of the strain mix, HAP_SPAN_SEED) through _call_span at
+           -t 1 with its haplotype SW one K3 batch and on the host: the
+           same haplotypes, CIGARs and pairs region by region, every SW
+           pair on the card, both K3 forms launched; the batch replayed
+           against the plain version and the native aligner, timed
+           (`sw_main_path` line `hap_span`).
 11. region_batch  region_batch_step at world size 1 on the flattened
            main-path batch with sample ids and depths from the seed: lk
            against the f64 host kernel after the escalation rule (<= 2e-3),
@@ -248,15 +269,26 @@ SW_OPS_PER_CELL = 23
 #: csrc/<name>.cu of every kernel of the main path
 KERNEL_SOURCES = ("pairhmm", "sw")
 #: the e2e legs in turns, so that drift on the host hits both alike
-LEG_ORDER = ("gpu_sw", "f64", "f64_sw", "gpu", "gpu_act")
-#: `call` flags of each leg: "gpu" is the default path on a card (native
-#: host SW), the "_sw" legs run the realignment SW on the card
+LEG_ORDER = ("gpu_sw", "f64", "f64_sw", "gpu", "gpu_hosthap", "gpu_act")
+#: `call` flags of each leg: "gpu" is the default path on a card (each
+#: span's haplotype CIGARs' SW on the SW kernel, the realignment SW on the
+#: native host aligner), the "_sw" legs run the realignment SW on the card
+#: too; the f64 legs take the haplotype SW on the host
 LEG_FLAGS = {"gpu": [], "gpu_sw": ["--pallas-sw"], "f64": ["--force-cpu"],
-             "f64_sw": ["--force-cpu", "--pallas-sw"], "gpu_act": []}
+             "f64_sw": ["--force-cpu", "--pallas-sw"], "gpu_hosthap": [],
+             "gpu_act": []}
 #: the leg that runs the activity chain on the card
 LEG_ENV = {"gpu_act": {"LORIKEET_DEVICE_ACTIVITY": "1"}}
+#: the card leg whose haplotype SW runs on the native host aligner
+#: (processing._hap_sw_device giving None), as a run without a card's does
+HAP_ON_HOST = ("gpu_hosthap",)
 #: legs whose VCFs must be byte-identical: only the SW's device differs
-SAME_VCF = (("gpu", "gpu_sw"), ("f64", "f64_sw"))
+#: (the realignment's; the haplotype CIGARs'; the realignment's)
+SAME_VCF = (("gpu", "gpu_sw"), ("gpu_hosthap", "gpu"), ("f64", "f64_sw"))
+#: the dense span of the `hap_span` phase: portbench's short configuration
+#: cut to one contig of this many kbp under its strain mix, and the seed
+HAP_SPAN_KBP = 40
+HAP_SPAN_SEED = 4200000101
 #: -t of the pool legs: four workers beside the parent on the 8 cores
 POOL_THREADS = 4
 #: the pool legs and the -t 1 legs whose outputs they must equal, in the
@@ -1008,7 +1040,7 @@ def summarise_jobs(jobs) -> dict:
 
 
 def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
-             mode="call", cards=None):
+             mode="call", cards=None, hap_on_host=False):
     """One run of ``mode`` (`call`, `genotype` or `consensus`) through the
     CLI at -t ``threads`` on ``bams`` (none: the reads come in ``extra``),
     under the environment variables of ``env`` (None: unset), with
@@ -1019,9 +1051,14 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
     worker packed counts too (``batch_longest``).  The counting
     wrappers below see the work of this process only: at -t above 1 the
     workers' counters come back through the pool, and the parent's service
-    moves LAUNCHES, CARD_LAUNCHES, SW_LAUNCHES and SW_COUNTS."""
+    moves LAUNCHES, CARD_LAUNCHES, SW_LAUNCHES and SW_COUNTS.  Each span's
+    haplotype SW batch is seen at -t 1 (``hap_launches``, the largest
+    batch returned last); ``hap_counts`` adds the parent's HAP_COUNTS and
+    the workers'.  ``hap_on_host``: that SW on the native host aligner
+    although the run has a card."""
 
     from lorikeet_tpu_torch import cli
+    from lorikeet_tpu_torch import processing
     from lorikeet_tpu_torch.calling import engine
     from lorikeet_tpu_torch.calling import likelihoods as lk
     from lorikeet_tpu_torch.ops import pairhmm as ph
@@ -1030,6 +1067,7 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
     from lorikeet_tpu_torch.parallel import pipeline
     from lorikeet_tpu_torch.parallel import pool
     from lorikeet_tpu_torch.parallel import sharding
+    from lorikeet_tpu_torch.utils import cigar
     from lorikeet_tpu_torch.utils import progress
 
     cards = list(cards or one_card())
@@ -1037,6 +1075,8 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
     largest = {"cells": -1, "pairs": None}
     sw_work = {"batches": 0, "device_batches": 0}
     sw_largest = {"device": 0, "pairs": None}
+    hap_work = {"batches": 0, "launches": 0}
+    hap_largest = {"pairs": 0, "padded": None}
     activity = {"spans": 0, "positions": -1, "span": None}
     batch_longest = []
     jobs = []
@@ -1044,6 +1084,8 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
     align_batch = sc.align_batch_cuda
     smooth = pipeline.smoothed_activity_device
     enqueue = pc.enqueue_grouped_jobs
+    calculate_cigars = cigar.calculate_cigars
+    hap_sw_device = processing._hap_sw_device
 
     def enqueue_seen(arrays, *args, **kwargs):
         # every K2 batch of the parent, its own or served to a worker
@@ -1068,6 +1110,20 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
             sw_largest.update(device=n, pairs=list(pairs))
         return out
 
+    def hap_counted(pairs, align_batch=None):
+        # a span's haplotype CIGARs in this process: its SW batch as the
+        # kernel takes it (N-padded, NEW_SW_PARAMETERS, SOFTCLIP)
+        def seen(padded, parameters, strategy):
+            launches = sc.SW_LAUNCHES
+            out = align_batch(padded, parameters, strategy)
+            hap_work["batches"] += 1
+            hap_work["launches"] += sc.SW_LAUNCHES - launches
+            if len(padded) > hap_largest["pairs"]:
+                hap_largest.update(pairs=len(padded), padded=[
+                    (r.tobytes(), a.tobytes()) for r, a in padded])
+            return out
+        return calculate_cigars(pairs, seen if align_batch else None)
+
     def counted(eng, works):
         pairs = [p for w in works for p in w.pairs]
         cells = sum(len(p[0]) * len(p[1]) for p in pairs)
@@ -1085,6 +1141,9 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
     pc.enqueue_grouped_jobs = enqueue_seen
     pipeline.smoothed_activity_device = activity_counted
     sharding.visible_cards = lambda: cards
+    cigar.calculate_cigars = hap_counted
+    if hap_on_host:
+        processing._hap_sw_device = lambda cfg: None
     env = dict(env or {})
     saved_env = {k: os.environ.get(k) for k in env}
     for key, value in env.items():
@@ -1101,6 +1160,7 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
     progress.GLOBAL_STAGES = {}
     lk.DISPATCH_COUNTS.update(device=0, host=0, remote=0, local=0)
     pool.WORKER_COUNTS.update(dict.fromkeys(pool.WORKER_COUNTS, 0))
+    processing.HAP_COUNTS.update(dict.fromkeys(processing.HAP_COUNTS, 0))
     pool.SPAN_RERUNS.update(spans=0)
     pool.WORKER_REPORTS.clear()
     ph.ESCALATIONS.update(checked=0, escalated=0)
@@ -1124,6 +1184,8 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
         pc.enqueue_grouped_jobs = enqueue
         pipeline.smoothed_activity_device = smooth
         sharding.visible_cards = visible_cards
+        cigar.calculate_cigars = calculate_cigars
+        processing._hap_sw_device = hap_sw_device
         for key, old in saved_env.items():
             if old is None:
                 os.environ.pop(key, None)
@@ -1165,6 +1227,11 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
            "sw_device_batches": sw_work["device_batches"],
            "spans": work["batches"], "activity_spans": activity["spans"],
            "worker_counts": dict(pool.WORKER_COUNTS),
+           "hap_counts": {k: n + pool.WORKER_COUNTS[k]
+                          for k, n in processing.HAP_COUNTS.items()},
+           "hap_batches": hap_work["batches"],
+           "hap_launches": hap_work["launches"],
+           "hap_largest_pairs": hap_largest["pairs"],
            "span_reruns": pool.SPAN_RERUNS["spans"],
            "workers": sorted(pool.WORKER_REPORTS.values(),
                              key=lambda r: r["wid"]),
@@ -1177,7 +1244,8 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
            "timings": out.get("timings", {}),
            "n_variant_groups": out.get("n_variant_groups"),
            "n_strains": out.get("n_strains")}
-    return leg, largest["pairs"], sw_largest["pairs"], activity["span"]
+    return (leg, largest["pairs"], sw_largest["pairs"], activity["span"],
+            hap_largest["padded"])
 
 
 def call_phase(root):
@@ -1193,11 +1261,12 @@ def call_phase(root):
     call_leg("warmup", fasta, bams, os.path.join(root, "warmup"),
              ["--force-cpu", "--limiting-interval", "0-30000"])
     legs = {}
-    batch = sw_batch = span = None
+    batch = sw_batch = span = hap_batch = None
     for run, label in enumerate(LEG_ORDER):
-        leg, largest, sw_largest, leg_span = call_leg(
+        leg, largest, sw_largest, leg_span, hap_largest = call_leg(
             label, fasta, bams, os.path.join(root, f"{label}{run}"),
-            LEG_FLAGS[label], LEG_ENV.get(label))
+            LEG_FLAGS[label], LEG_ENV.get(label),
+            hap_on_host=label in HAP_ON_HOST)
         calls, _, _ = read_vcf(leg["vcf"])
         leg["calls"] = len(calls)
         leg["recall"] = recall(calls, truth)
@@ -1221,19 +1290,44 @@ def call_phase(root):
         else:
             check(leg["launches"] == 0 and leg["dispatch"]["device"] == 0,
                   f"{label} leg ran the pair-HMM on the device")
+        # every span's haplotype CIGARs: their SW one K3 batch a span on a
+        # card leg (processing._span_hap_cigars), the native aligner on
+        # the f64 legs and the host-hap leg
+        hap = leg["hap_counts"]
+        if on_card and label not in HAP_ON_HOST:
+            check(hap["hap_sw_card"] == hap["hap_sw"] > 0
+                  and leg["hap_launches"] > 0 and leg["hap_batches"] > 0,
+                  f"{label} leg: haplotype SW {hap}, "
+                  f"{leg['hap_batches']} batches on the card, "
+                  f"{leg['hap_launches']} launches")
+            hap_batch = hap_batch or hap_largest
+        else:
+            check(hap["hap_sw_card"] == 0 < hap["hap_sw"]
+                  and leg["hap_launches"] == leg["hap_batches"] == 0,
+                  f"{label} leg: haplotype SW {hap}, "
+                  f"{leg['hap_batches']} batches on the card")
         if sw_on_card:
-            check(leg["sw_launches"] > 0 and leg["sw_counts"]["device"] > 0,
-                  f"{label} leg: SW launches {leg['sw_launches']}, "
+            check(leg["sw_launches"] > leg["hap_launches"]
+                  and leg["sw_counts"]["device"] > 0,
+                  f"{label} leg: SW launches {leg['sw_launches']} "
+                  f"({leg['hap_launches']} of the haplotype CIGARs), "
                   f"counts {leg['sw_counts']}")
             sw_batch = sw_batch or sw_largest
         else:
-            # a card leg's haplotype CIGARs take K3 whatever the flag
-            # (processing._span_hap_cigars); the realignment stays on
-            # the host
-            check((on_card or leg["sw_launches"] == 0)
+            check(leg["sw_launches"] == leg["hap_launches"]
                   and leg["sw_counts"]["device"] == 0,
-                  f"{label} leg ran the realignment SW on the device")
+                  f"{label} leg ran the realignment SW on the device: "
+                  f"{leg['sw_launches']} SW launches, "
+                  f"{leg['hap_launches']} of the haplotype CIGARs, "
+                  f"routes {leg['sw_counts']}")
         legs[label] = leg
+    # the legs on the host's activity chain assemble the same regions: the
+    # same haplotype CIGARs and SW pairs wherever the SW ran
+    haps = {label: (leg["hap_counts"]["hap_cigars"],
+                    leg["hap_counts"]["hap_sw"])
+            for label, leg in legs.items() if label not in LEG_ENV}
+    check(len(set(haps.values())) == 1, f"haplotype CIGARs and SW pairs "
+          f"differ between legs: {haps}")
     for plain_sw, card_sw in SAME_VCF:
         with open(legs[plain_sw]["vcf"], "rb") as a, \
                 open(legs[card_sw]["vcf"], "rb") as b:
@@ -1250,7 +1344,7 @@ def call_phase(root):
          vcfs_identical=[list(p) for p in SAME_VCF],
          **{f"{k}_wall_s": leg["wall_s"] for k, leg in legs.items()},
          **{f"{k}_pairhmm_s": leg["pairhmm_s"] for k, leg in legs.items()})
-    return legs, batch, sw_batch, span, (fasta, bams, sg), truth
+    return legs, batch, sw_batch, hap_batch, span, (fasta, bams, sg), truth
 
 
 def output_files(out: dict) -> dict:
@@ -1350,6 +1444,14 @@ def pool_phase(root, fasta, bams, legs) -> dict:
               f"{ref['sw_launches']}), routes {leg['sw_counts']} (-t 1: "
               f"{ref['sw_counts']}), workers sent {leg['worker_counts']}, "
               f"{reruns} reruns")
+        # the spans' haplotype SW: the -t 1 leg's pairs, a "hsw" request a
+        # span to the service's K3 on a card leg, the workers' host on f64
+        hap, ref_hap = leg["hap_counts"], ref["hap_counts"]
+        check(all(same(hap[k], ref_hap[k]) for k in hap)
+              and hap["hap_sw_card"] == (hap["hap_sw"] if on_card else 0)
+              and (leg["worker_counts"]["hsw_batches"] > 0) == on_card,
+              f"{label}: haplotype SW {hap} (-t 1: {ref_hap}), workers "
+              f"sent {leg['worker_counts']}, {reruns} reruns")
         check(same(leg["checked"], ref["checked"])
               and (reruns > 0 or leg["escalated"] == ref["escalated"]),
               f"{label}: escalations {leg['escalated']}/{leg['checked']}, "
@@ -1679,7 +1781,7 @@ def mixed_leg(root, fasta, bams, truth, dev) -> dict:
     f64, *_ = call_leg("mixed_f64_t4", fasta, bams,
                        os.path.join(root, "mixed_f64_t4"),
                        ["--force-cpu", *extra], threads=POOL_THREADS)
-    t1, largest, sw_largest, _ = call_leg(
+    t1, largest, sw_largest, *_ = call_leg(
         "mixed_gpu_sw", fasta, bams, os.path.join(root, "mixed_gpu_sw"),
         ["--pallas-sw", *extra])
     sites, dq = same_sites("mixed", card["vcf"], f64["vcf"])
@@ -2062,7 +2164,7 @@ def raw_reads_leg(root, fasta, sams, base, dev) -> dict:
     check(card["launches"] == base["launches"],
           f"raw_reads: {card['launches']} K2 launches, the BAM-input leg "
           f"{base['launches']}")
-    sw, _, sw_largest, _ = call_leg(
+    sw, _, sw_largest, *_ = call_leg(
         "paths_raw_reads_gpu_sw_t4", fasta, [],
         os.path.join(root, "paths_raw_reads_gpu_sw_t4"),
         ["--pallas-sw", *reads, "--bam-file-cache-directory",
@@ -2572,6 +2674,110 @@ def sw_main_path_phase(pairs, dev) -> dict:
                     phase="sw_main_path")
 
 
+def hap_main_path_phase(padded, dev) -> dict:
+    """The largest haplotype SW batch of the first card leg (a span's
+    N-padded window/haplotype pairs), replayed at the main path's settings:
+    kernel, plain version and native aligner agree."""
+    from lorikeet_tpu_torch.ops.smith_waterman import (
+        NEW_SW_PARAMETERS, OverhangStrategy,
+    )
+    return sw_phase("hap_main_path", padded, NEW_SW_PARAMETERS,
+                    OverhangStrategy.SOFTCLIP, dev, timed=False,
+                    phase="sw_main_path")
+
+
+def hap_span_phase(root, dev) -> dict:
+    """One dense span (portbench's short configuration, one contig of
+    HAP_SPAN_KBP under the strain mix) through processing._call_span at
+    -t 1 twice: its haplotype SW one K3 batch, then on the native host
+    aligner.  The same works (haplotypes, CIGARs, pairs), both K3 forms
+    launched, every SW pair on the card; the batch replayed and timed."""
+    from lorikeet_tpu_torch import processing
+    from lorikeet_tpu_torch.calling.engine import (
+        CallerConfig, HaplotypeCallerEngine,
+    )
+    from lorikeet_tpu_torch.io.bam import open_bam
+    from lorikeet_tpu_torch.io.fasta import FastaReader
+    from lorikeet_tpu_torch.ops import sw_cuda as sc
+    from lorikeet_tpu_torch.ops.smith_waterman import (
+        NEW_SW_PARAMETERS, OverhangStrategy,
+    )
+    from lorikeet_tpu_torch.utils import cigar
+    from portbench.gen import dataset
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "portbench", "configs",
+                           "mag_short_pe150_2s30x.json")) as fh:
+        config = {**json.load(fh), "contigs": 1, "contig_kbp": HAP_SPAN_KBP}
+    with open(os.path.join(here, "portbench", "traffic",
+                           "strains_1pct.json")) as fh:
+        mix = json.load(fh)
+    data = dataset.build(os.path.join(root, "hap_span"), config, mix,
+                         HAP_SPAN_SEED, 0)
+    fasta = FastaReader(data.fasta)
+    bams = [open_bam(p) for p in data.bams]
+    contig = next(iter(data.contigs))
+    batches = []
+    calculate_cigars = cigar.calculate_cigars
+    hap_sw_device = processing._hap_sw_device
+
+    def caught(pairs, align_batch=None):
+        def seen(padded, parameters, strategy):
+            batches.append([(r.tobytes(), a.tobytes()) for r, a in padded])
+            return align_batch(padded, parameters, strategy)
+        return calculate_cigars(pairs, seen if align_batch else None)
+
+    def span(device):
+        processing._hap_sw_device = lambda cfg: device
+        processing.HAP_COUNTS.update(dict.fromkeys(processing.HAP_COUNTS, 0))
+        cfg = CallerConfig()
+        t0 = time.perf_counter()
+        _, works = processing._call_span(
+            fasta, bams, contig, cfg, HaplotypeCallerEngine(cfg), 0,
+            fasta.length(contig), defer=True)
+        seconds = time.perf_counter() - t0
+        return works, dict(processing.HAP_COUNTS), seconds
+
+    def haps(works):
+        return [(w.window_start, w.active_start, w.active_end,
+                 [(h.bases, h.cigar, h.score, h.is_ref, h.kmer_size)
+                  for h in w.haplotypes],
+                 [tuple(x.tobytes() if hasattr(x, "tobytes") else x
+                        for x in p) for p in w.pairs]) for w in works]
+
+    forms = dict(sc.SW_FORM_LAUNCHES)
+    cigar.calculate_cigars = caught
+    try:
+        card, counts, card_s = span(dev)
+        forms = {k: sc.SW_FORM_LAUNCHES[k] - n for k, n in forms.items()}
+        host, host_counts, host_s = span(None)
+    finally:
+        cigar.calculate_cigars = calculate_cigars
+        processing._hap_sw_device = hap_sw_device
+    check(len(batches) == 1, f"hap_span: {len(batches)} SW batches in one "
+          "span on the card")
+    check(haps(card) == haps(host) and len(card) > 0,
+          f"hap_span: the K3 span's {len(card)} works differ from the host "
+          f"span's {len(host)}")
+    check(counts["hap_sw_card"] == counts["hap_sw"] == host_counts["hap_sw"]
+          == len(batches[0]) > 0 and host_counts["hap_sw_card"] == 0
+          and counts["hap_cigars"] == host_counts["hap_cigars"],
+          f"hap_span: counts {counts}, host {host_counts}, batch "
+          f"{len(batches[0])} pairs")
+    check(forms["warp"] > 0 and forms["cta"] > 0,
+          f"hap_span: K3 launches by form {forms}")
+    replay = sw_phase("hap_span", batches[0], NEW_SW_PARAMETERS,
+                      OverhangStrategy.SOFTCLIP, dev, timed=True,
+                      phase="sw_main_path")
+    out = {"contig_kbp": HAP_SPAN_KBP, "seed": HAP_SPAN_SEED,
+           "regions": len(card), "counts": counts, "form_launches": forms,
+           "span_s": card_s, "host_span_s": host_s,
+           "alt_max": max(len(a) for _, a in batches[0]),
+           "ref_max": max(len(r) for r, _ in batches[0])}
+    emit("hap_span", **out)
+    return {**out, "replay": replay}
+
+
 def trace_phase(root, fasta, bams, sites, label, threads=1):
     """The card leg ``label`` once more under the profiler (--profile-dir),
     at -t ``threads``: how much of the run the card is busy.  It runs last,
@@ -2656,7 +2862,8 @@ def main() -> int:
     from lorikeet_tpu_torch.ops import pairhmm_cuda as pc
     from lorikeet_tpu_torch.parallel import pool
     with tempfile.TemporaryDirectory() as root:
-        legs, batch, sw_batch, span, dataset, truth = call_phase(root)
+        legs, batch, sw_batch, hap_batch, span, dataset, truth = \
+            call_phase(root)
         gpu, gpu_sw = legs["gpu"], legs["gpu_sw"]
         pool_legs = pool_phase(root, *dataset[:2], legs)
         genotype_phase(root, *dataset[:2])
@@ -2677,6 +2884,8 @@ def main() -> int:
         main_batch = kernel_phase("main_path", batch, dev, timed=True)
         flat_main = flat_kernel_phase("main_path", batch, dev, timed=True)
         sw_main = sw_main_path_phase(sw_batch, dev)
+        hap_main = hap_main_path_phase(hap_batch, dev)
+        hap_span = hap_span_phase(root, dev)
         # the flat kernel's own path, counted from 0: the region-batch step
         # on the main path's batch, then the dry run's three steps
         pc.FLAT_LAUNCHES = 0
@@ -2693,7 +2902,7 @@ def main() -> int:
     entry_phase(dev)
     checks += [main_batch, mixed["kernel"]]
     flat_checks.append(flat_main)
-    sw_checks += [sw_main, mixed["sw"], raw_sw]
+    sw_checks += [sw_main, mixed["sw"], raw_sw, hap_main, hap_span["replay"]]
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "lorikeet_tpu", "bench_e2e"))

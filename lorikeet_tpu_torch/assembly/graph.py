@@ -32,7 +32,6 @@ import numpy as np
 from lorikeet_tpu_torch.ops.smith_waterman import (
     align, OverhangStrategy, STANDARD_NGS,
 )
-from lorikeet_tpu_torch.utils.cigar import calculate_cigar
 
 PRUNE_FACTOR_COVERAGE_THRESHOLD = 10.0
 MAX_KMER_ITERATIONS_TO_ATTEMPT = 6
@@ -995,20 +994,6 @@ def _ref_has_non_unique_kmers(ref_bytes: bytes, k: int) -> bool:
             return True
         seen.add(km)
     return False
-
-
-def assemble_region(ref_seq: np.ndarray, reads_by_sample: dict,
-                    **kwargs) -> list:
-    """Assemble haplotypes for one region. Returns [AssembledHaplotype],
-    reference haplotype first: :func:`assemble_candidates` (same keyword
-    arguments) and each candidate's CIGAR against the window."""
-    ref_bytes, candidates = assemble_candidates(ref_seq, reads_by_sample,
-                                                **kwargs)
-    ref = np.frombuffer(ref_bytes, np.uint8)
-    return haplotypes_from_candidates(
-        ref_bytes, candidates,
-        [calculate_cigar(ref, np.frombuffer(bases, np.uint8))
-         for _, bases, _ in candidates])
 
 
 def haplotypes_from_candidates(ref_bytes: bytes, candidates: list,

@@ -238,6 +238,7 @@ def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire,
             for i, c in enumerate(chunks):
                 arrays[f"seqs.{i}"], arrays[f"meta.{i}"] = c["seqs"], \
                     c["meta"]
+            _take_pending()
             segment.put(rpc_conn, "hsw", arrays, None)
             sent["hsw_batches"] += 1
             return _reply()
@@ -249,7 +250,6 @@ def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire,
     if on_card and hap_sw:
         from lorikeet_tpu_torch.ops.sw_cuda import HOST_SIZES, align_batch_rows
         processing.DEVICE_HAP_SW = _device_hap_sw
-        processing.DEVICE_READY = _take_pending
 
     def _put(tid, res, engine):
         geno = engine.genotyping

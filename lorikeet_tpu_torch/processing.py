@@ -279,10 +279,8 @@ DEVICE_ACTIVITY = None
 #: in a -t pool worker of a run whose haplotype SW is on the card
 #: (parallel/pool.py): sends a span's haplotype SW batch to the parent's
 #: device service, called as ``DEVICE_HAP_SW(pairs, parameters,
-#: strategy)`` -> ([(cigar, offset)], pairs the kernel aligned), after
-#: ``DEVICE_READY()``, which takes any reply the worker still waits on
+#: strategy)`` -> ([(cigar, offset)], pairs the kernel aligned)
 DEVICE_HAP_SW = None
-DEVICE_READY = None
 #: the haplotype CIGARs this process's spans computed, the SW alignments
 #: they took (the pairs past calculate_cigar's trivial cases; equal pairs
 #: of a span share one) and those of them the SW kernel ran; a pool
@@ -321,8 +319,6 @@ def _span_hap_cigars(cfg, drafts) -> list:
     pairs = [p for d in drafts for p in d.cigar_pairs()]
     if DEVICE_HAP_SW is not None:
         send = DEVICE_HAP_SW
-        if pairs:
-            DEVICE_READY()
     elif _prog.WORKER is None and (device := _hap_sw_device(cfg)) is not None:
         from lorikeet_tpu_torch.ops import sw_cuda
 

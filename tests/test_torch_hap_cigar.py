@@ -159,7 +159,6 @@ def test_span_without_pairs_sends_no_request(monkeypatch):
     sent = []
     monkeypatch.setattr(tproc, "DEVICE_HAP_SW",
                         lambda *a: sent.append(a) or ([], 0))
-    monkeypatch.setattr(tproc, "DEVICE_READY", lambda: None)
     monkeypatch.setattr(tproc, "HAP_COUNTS",
                         dict.fromkeys(tproc.HAP_COUNTS, 0))
     window = np.frombuffer(b"ACGTTGCAAC" * 8, np.uint8)
@@ -279,13 +278,13 @@ def _reads(rng, haps, read_len=100, depth=12):
 @pytest.mark.parametrize("seed", range(4))
 def test_assemble_region_equals_original(seed):
     """A window with two alternates of SNPs and indels: the split
-    assemble_region (assemble_candidates, the CIGARs,
+    assemble_region (assemble_candidates, the CIGARs in one batch,
     haplotypes_from_candidates) gives the original's haplotypes."""
     from lorikeet_tpu.assembly.graph import (
         assemble_region as jax_assemble_region)
     from lorikeet_tpu.io.bam import BamRecord as JaxRecord
     from lorikeet_tpu_torch.assembly.graph import (
-        assemble_candidates, assemble_region, haplotypes_from_candidates)
+        assemble_candidates, haplotypes_from_candidates)
     rng = np.random.default_rng(100 + seed)
     ref = rng.choice(np.frombuffer(b"ACGT", np.uint8), 360)
     haps = [ref, _edit(rng, ref, 3), _edit(rng, ref, 4)]
@@ -295,12 +294,10 @@ def test_assemble_region_equals_original(seed):
                            qual=r.qual) for r in reads]
     want = [(h.bases, h.cigar, h.score, h.is_ref, h.kmer_size)
             for h in jax_assemble_region(ref, {0: jax_reads})]
-    got = assemble_region(ref, {0: reads})
-    assert [(h.bases, h.cigar, h.score, h.is_ref, h.kmer_size)
-            for h in got] == want
     assert len(want) >= 3
     ref_bytes, cands = assemble_candidates(ref, {0: reads})
-    cigars, _ = calculate_cigars([(ref, np.frombuffer(b, np.uint8))
-                                  for _, b, _ in cands], _plain)
-    assert [(h.bases, h.cigar, h.score, h.is_ref, h.kmer_size) for h in
-            haplotypes_from_candidates(ref_bytes, cands, cigars)] == want
+    pairs = [(ref, np.frombuffer(b, np.uint8)) for _, b, _ in cands]
+    for align_batch in (None, _plain):
+        cigars, _ = calculate_cigars(pairs, align_batch)
+        assert [(h.bases, h.cigar, h.score, h.is_ref, h.kmer_size) for h in
+                haplotypes_from_candidates(ref_bytes, cands, cigars)] == want
