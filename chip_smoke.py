@@ -154,7 +154,7 @@ Phases, one JSON line each; any failure exits non-zero without the final
            the stolen ones, and the `chunk_shard` gathered VCF byte for
            byte.  The SAMs and the halves are written in two spawned
            processes while the first legs run.
-8f. wire   the wire path and the router on the same genome.  The measured
+8f. wire   the wire path on the same genome.  The measured
            host-to-card rate and the auto gate's verdict (`wire_gate`).
            `wire_t1`: -t 1 with LORIKEET_WIRE_COMPRESS=1: every file the
            `gpu` leg's, the decode kernel launched, no batch on a host.
@@ -166,11 +166,7 @@ Phases, one JSON line each; any failure exits non-zero without the final
            pools): every file the `gpu` leg's, the decode kernel launched
            on each wire leg, the walls and pair-HMM stages.  The service
            depth (pool.SERVICE_DEPTH set to 1 / 2 on the warm flat pool, in
-           turns 1, 2, 2, 1): the same files, the walls.  `route_auto_t1`
-           (LORIKEET_PALLAS_ROUTE=auto, the router from a fresh state) and
-           `remote_auto_t4` (LORIKEET_REMOTE_ROUTE=auto): against the f64
-           leg with `compare`'s bars, recall >= 0.99, the device / host /
-           remote / local split and the routers' rates.  Then the decode
+           turns 1, 2, 2, 1): the same files, the walls.  Then the decode
            kernel on the main-path batch and on it with a haplotype of the
            next odd length above the longest (an odd width): byte for byte
            against its plain version and the flat planes, K2 on its planes
@@ -339,16 +335,9 @@ PATHS_LIMIT = (200_000, 700_000)
 PATHS_LIMIT_MARGIN = 1_000
 PATHS_SPLIT_AT = 500_000
 PATHS_SHARD_GRACE_S = 3
-#: the router's state in a fresh process, taken before the first leg: a leg
-#: that sets LORIKEET_PALLAS_ROUTE starts from it (call_leg)
-ROUTER_START = {}
-#: the `wire` phase: the -t 1 leg with the wire form forced on;
-#: the cost-router legs; wire against flat at -t 4 and the service depth,
-#: in turns
+#: the `wire` phase: the -t 1 leg with the wire form forced on; wire
+#: against flat at -t 4 and the service depth, in turns
 WIRE_LEG_ENV = {"LORIKEET_WIRE_COMPRESS": "1"}
-ROUTE_LEGS = (("route_auto_t1", 1, {"LORIKEET_PALLAS_ROUTE": "auto"}),
-              ("remote_auto_t4", POOL_THREADS,
-               {"LORIKEET_REMOTE_ROUTE": "auto"}))
 #: LORIKEET_WIRE_COMPRESS a -t 4 leg: the first leg of each setting starts
 #: its pool (spawn, BAM decode in the workers) and is reported apart; the
 #: next six are timed in turns
@@ -1151,14 +1140,8 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
             os.environ.pop(key, None)
         else:
             os.environ[key] = value
-    # the parent's router reads LORIKEET_PALLAS_ROUTE at import: a leg that
-    # sets it gets that mode, from the state a fresh process starts in
-    saved_router = lk._ROUTE_MODE, lk._PERF
-    if env.get("LORIKEET_PALLAS_ROUTE"):
-        lk._ROUTE_MODE = env["LORIKEET_PALLAS_ROUTE"]
-        lk._PERF = dict(ROUTER_START)
     progress.GLOBAL_STAGES = {}
-    lk.DISPATCH_COUNTS.update(device=0, host=0, remote=0, local=0)
+    lk.DISPATCH_COUNTS.update(device=0, host=0, remote=0)
     pool.WORKER_COUNTS.update(dict.fromkeys(pool.WORKER_COUNTS, 0))
     processing.HAP_COUNTS.update(dict.fromkeys(processing.HAP_COUNTS, 0))
     pool.SPAN_RERUNS.update(spans=0)
@@ -1191,8 +1174,6 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
                 os.environ.pop(key, None)
             else:
                 os.environ[key] = old
-        router = dict(lk._PERF)
-        lk._ROUTE_MODE, lk._PERF = saved_router
     wall = time.perf_counter() - t0
     launches = pc.LAUNCHES
     card_launches = dict(pc.CARD_LAUNCHES)
@@ -1216,7 +1197,7 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
            "dispatch": dict(lk.DISPATCH_COUNTS),
            "wire_launches": pc.WIRE_LAUNCHES,
            "wire_counts": dict(pc.WIRE_COUNTS),
-           "jobs": summarise_jobs(jobs), "router": router,
+           "jobs": summarise_jobs(jobs),
            "escalated": esc["escalated"], "checked": esc["checked"],
            "escalation_share": (esc["escalated"] / esc["checked"]
                                 if esc["checked"] else 0.0),
@@ -2429,8 +2410,8 @@ def wire_kernel_phase(name, pairs, dev) -> dict:
     return out
 
 
-def wire_phase(root, fasta, bams, truth, legs, t4_legs, batch, dev) -> tuple:
-    """The wire path and the router (see the module docstring).  Returns
+def wire_phase(root, fasta, bams, legs, t4_legs, batch, dev) -> tuple:
+    """The wire path (see the module docstring).  Returns
     the first forced-wire -t 4 leg (K6's counted path) and the decode
     kernel's checks on the main-path batch and the odd-width one."""
     from lorikeet_tpu_torch.ops import pairhmm_cuda as pc
@@ -2510,21 +2491,6 @@ def wire_phase(root, fasta, bams, truth, legs, t4_legs, batch, dev) -> tuple:
     finally:
         pool.SERVICE_DEPTH = saved
     emit("wire", leg="depth_t4", walls_s=depth)
-    f64 = legs["f64"]
-    for label, threads, env in ROUTE_LEGS:
-        leg, *_ = call_leg(label, fasta, bams, os.path.join(root, label), [],
-                           env=env, threads=threads)
-        sites, dq = same_sites(f"{label} against the f64 leg", leg["vcf"],
-                               f64["vcf"])
-        rec = leg_recall(leg, truth)
-        check(rec >= MIN_RECALL, f"{label}: recall {rec}")
-        emit("wire", leg=label, threads=threads, env=env,
-             wall_s=leg["wall_s"], f64_wall_s=f64["wall_s"],
-             gpu_wall_s=gpu["wall_s"], pairhmm_s=leg["pairhmm_s"],
-             sites=len(sites), max_qual_diff=dq, recall=rec,
-             dispatch=leg["dispatch"], launches=leg["launches"],
-             wire_counts=leg["wire_counts"], router=leg["router"],
-             worker_routers=[w.get("perf") for w in leg["workers"]])
     checks = [wire_kernel_phase("main_path", batch, dev),
               wire_kernel_phase("odd_width", odd_width_pairs(batch), dev)]
     check(checks[1]["hmax"] % 2 == 1, "odd_width: the width is even")
@@ -2829,10 +2795,8 @@ def main() -> int:
     import numpy as np
 
     from lorikeet_tpu_torch import device
-    from lorikeet_tpu_torch.calling import likelihoods as lk
     from lorikeet_tpu_torch.ops import _build
 
-    ROUTER_START.update(lk._PERF)       # before any batch has taught it
     info = device.probe()
     emit("probe", **info)
     check(info["capability"] == [9, 0],
@@ -2877,8 +2841,8 @@ def main() -> int:
                                                          "gpu_sw_t4")}
         t4_legs.update((f"knob_{name}", knob)
                        for name, knob in modes["knobs"].items())
-        wire_t4, wire_checks = wire_phase(root, *dataset[:2], truth, legs,
-                                          t4_legs, batch, dev)
+        wire_t4, wire_checks = wire_phase(root, *dataset[:2], legs, t4_legs,
+                                          batch, dev)
         # the main path's largest batches, replayed after the counted run:
         # each kernel at the shapes the main path gives it
         main_batch = kernel_phase("main_path", batch, dev, timed=True)

@@ -18,23 +18,14 @@ Contracts:
 The likelihood values come from the grouped CUDA pair-HMM kernel
 (ops.pairhmm_cuda) when ``use_cuda`` is set, escalated through
 pairhmm_forward_checked for f32-flushed deep negatives, and from the exact
-f64 native host kernel otherwise.
-
-The JAX package's host/device cost router is here with its cost model and
-its verdicts (``_route_device``, and ``_route_remote`` for a ``-t`` pool
-worker, on the rates ``_update_perf`` learns).  The one difference is the
-defaults: ``LORIKEET_PALLAS_ROUTE`` is ``device`` and
-``LORIKEET_REMOTE_ROUTE`` is ``remote``, where the JAX package has
-``auto``, because the port's entry points run on the card unless the
-caller asks otherwise; ``auto`` (or ``host`` / ``local``) is asked for.
-The rates are learnt only while a router is on ``auto`` (``_learning``):
-under the defaults nothing reads them.
+f64 native host kernel otherwise.  That is the one rule for where a pair
+batch runs: every batch of a run on cards goes to the card (a ``-t`` pool
+worker's through the parent's device service), and only ``--force-cpu``
+(``use_cuda`` False) puts the pair-HMM on the host.
 """
 from __future__ import annotations
 
 import functools
-import os
-import time
 
 import numpy as np
 
@@ -559,120 +550,9 @@ def build_pairs(haplotypes: list, reads_by_sample: dict,
 #: batches dispatched to the device vs the host kernel in this process (a
 #: silent device bypass must be visible in the stage split, not inferred
 #: from timings); "remote" counts the pool workers' batches that the
-#: parent's device service ran (parallel.pool), "host" includes the
-#: workers' own, added as their results come back, and "local" counts
-#: those of them that a worker's router kept or the service sent back
-DISPATCH_COUNTS = {"device": 0, "host": 0, "remote": 0, "local": 0}
-
-#: Adaptive device-vs-host cost model (the JAX package's).  Whether the
-#: device wins a batch depends on the host's native throughput (cells/s)
-#: against the link's effective bandwidth and latency.  Both sides are
-#: estimated from observed executions (EWMA) and every 16th eligible batch
-#: explores the currently-losing side to keep the estimates fresh.
-#: LORIKEET_PALLAS_ROUTE=device|host|auto overrides (default device).
-_PERF = {"host_cps": None, "dev_bps": None, "dev_lat": 0.06, "n_batch": 0,
-         "rem_bps": None, "rem_lat": 0.01}
-_ROUTE_MODE = os.environ.get("LORIKEET_PALLAS_ROUTE", "device")
-_EXPLORE_EVERY = 16
-#: the JAX package's read rows a dispatch (ROWS_CAP of
-#: lorikeet_tpu/ops/pairhmm_pallas.py): the cost model counts dispatches
-#: as it does, so that its verdicts are the JAX package's
-ROWS_CAP = 4096
-
-
-def lane_fit_bucket(rmax: int) -> int:
-    """Read-length bucket: next 32k-1 value >= rmax (the JAX package's
-    compile bucket; here only an input of the cost model)."""
-    return -(-(rmax + 1) // 32) * 32 - 1
-
-
-def _batch_cost_inputs(pairs):
-    """(true_cells, est_device_bytes, est_dispatches) for a pair batch."""
-    cells = sum(len(p[0]) * len(p[1]) for p in pairs)
-    uniq_reads = {id(p[1]) for p in pairs}
-    uniq_haps = {id(p[0]) for p in pairs}
-    rmax = max(len(p[1]) for p in pairs)
-    hmax = max(len(p[0]) for p in pairs)
-    rpad = -(-(lane_fit_bucket(rmax) + 1) // 128) * 128
-    spad = -(-(rmax + hmax) // 128) * 128
-    bytes_est = len(uniq_reads) * (5 * rpad + 32) + len(uniq_haps) * spad
-    n_disp = max(1, -(-len(uniq_reads) // ROWS_CAP))
-    return cells, bytes_est, n_disp
-
-
-def _route_remote(pairs) -> bool:
-    """Pool-worker routing (parallel.pool._worker_main): ship this batch
-    to the parent's device service or run the local host kernel on a
-    (contended) worker core.  Same measured-EWMA + exploration scheme as
-    _route_device, but the remote rate is learned from the WAIT time the
-    worker actually spends blocked on the reply: a fully-overlapped device
-    batch costs ~0 and remote wins; a saturated service shows up as long
-    waits and pushes batches local.  LORIKEET_REMOTE_ROUTE=remote|local|
-    auto overrides (default remote), read at each call."""
-    mode = os.environ.get("LORIKEET_REMOTE_ROUTE", "remote")
-    if mode == "remote":
-        return True
-    if mode == "local":
-        return False
-    _PERF["n_batch"] += 1
-    cells, bytes_est, _ = _batch_cost_inputs(pairs)
-    host_cps, rem_bps = _PERF["host_cps"], _PERF["rem_bps"]
-    if host_cps is None or rem_bps is None:
-        # local first: the host kernel is the known-safe side (batch 1
-        # always learns host_cps); the remote link gets its measurement on
-        # the worker's second eligible batch
-        return host_cps is not None and rem_bps is None \
-            and _PERF["n_batch"] >= 2
-    t_host = cells / host_cps
-    t_rem = bytes_est / rem_bps + _PERF["rem_lat"]
-    pick = t_rem < t_host
-    if _PERF["n_batch"] % _EXPLORE_EVERY == 0:
-        pick = not pick
-    elif not pick and _PERF.get("rem_bps_n", 0) < 3:
-        # the first remote samples are routinely poisoned by start-up
-        # congestion (cold service, depth probe, every worker exploring at
-        # once): keep sampling the link until the EWMA has >= 3 samples
-        # before trusting a "local" verdict
-        pick = True
-    return pick
-
-
-def _route_device(pairs) -> bool:
-    """True when the cost model (or an exploration turn) picks the device."""
-    if _ROUTE_MODE == "device":
-        return True
-    if _ROUTE_MODE == "host":
-        return False
-    _PERF["n_batch"] += 1
-    cells, bytes_est, n_disp = _batch_cost_inputs(pairs)
-    host_cps, dev_bps = _PERF["host_cps"], _PERF["dev_bps"]
-    if host_cps is None or dev_bps is None:
-        # no data yet for one side: run it to learn (host first: it is
-        # never catastrophic; the device side learns on the next batch)
-        return host_cps is not None
-    t_host = cells / host_cps
-    t_dev = bytes_est / dev_bps + n_disp * _PERF["dev_lat"]
-    pick_dev = t_dev < t_host
-    if _PERF["n_batch"] % _EXPLORE_EVERY == 0:
-        pick_dev = not pick_dev          # exploration turn
-    return pick_dev
-
-
-def _learning() -> bool:
-    """Whether a router is on ``auto`` and so reads the learned rates: only
-    then does a batch pay for its cost inputs and the rate update (the JAX
-    package, whose routers default to ``auto``, learns on every batch)."""
-    return _ROUTE_MODE == "auto" \
-        or os.environ.get("LORIKEET_REMOTE_ROUTE", "remote") == "auto"
-
-
-def _update_perf(key_rate, amount, elapsed):
-    if elapsed <= 1e-6:
-        return
-    rate = amount / elapsed
-    old = _PERF[key_rate]
-    _PERF[key_rate] = rate if old is None else 0.7 * old + 0.3 * rate
-    _PERF[key_rate + "_n"] = _PERF.get(key_rate + "_n", 0) + 1
+#: parent's device service ran (parallel.pool), and "host" includes the
+#: workers' own, added as their results come back
+DISPATCH_COUNTS = {"device": 0, "host": 0, "remote": 0}
 
 
 def resolve_use_cuda(use_cuda: bool | None) -> bool:
@@ -683,40 +563,21 @@ def resolve_use_cuda(use_cuda: bool | None) -> bool:
 
 def compute_pair_likelihoods(pairs: list, use_cuda: bool = None) -> np.ndarray:
     """log10 likelihood per packed pair.  With ``use_cuda`` (or ``None``,
-    which means the same) a batch the router sends to the device (every
-    one under the default ``LORIKEET_PALLAS_ROUTE=device``) runs on the
-    grouped kernel, its table blocks split over the run's device list
-    (parallel.sharding.get_devices: an error when it names a card and there
-    is none), and is then checked once by pairhmm_forward_checked; with
-    ``False``, or a host verdict, the exact f64 native host kernel computes
-    it.  Under a router on ``auto`` either side's time feeds its rate
-    (``_update_perf``)."""
+    which means the same) every batch runs on the grouped kernel, its table
+    blocks split over the run's device list (parallel.sharding.get_devices:
+    an error when it names a card and there is none), and is then checked
+    once by pairhmm_forward_checked; with ``False`` the exact f64 native
+    host kernel computes it."""
     if not pairs:
         return np.zeros(0)
-    use_cuda = resolve_use_cuda(use_cuda) and _route_device(pairs)
-    t0 = time.perf_counter()
-    if use_cuda:
+    if resolve_use_cuda(use_cuda):
         from lorikeet_tpu_torch.ops.pairhmm_cuda import pairhmm_forward_grouped
         from lorikeet_tpu_torch.parallel.sharding import get_devices
-        devices = get_devices()
         DISPATCH_COUNTS["device"] += 1
-        raw = pairhmm_forward_grouped(pairs, devices)
-        lks = pairhmm_forward_checked(raw, pairs)
-        if _learning():
-            elapsed = time.perf_counter() - t0
-            _, bytes_est, n_disp = _batch_cost_inputs(pairs)
-            # subtract the latency share, but never let a faster-than-
-            # latency measurement explode the rate estimate
-            _update_perf("dev_bps", bytes_est,
-                         max(elapsed - n_disp * _PERF["dev_lat"],
-                             elapsed * 0.25))
-        return lks
+        raw = pairhmm_forward_grouped(pairs, get_devices())
+        return pairhmm_forward_checked(raw, pairs)
     DISPATCH_COUNTS["host"] += 1
-    lks = pairhmm_forward_f64(pairs)
-    if _learning():
-        cells = sum(len(p[0]) * len(p[1]) for p in pairs)
-        _update_perf("host_cps", cells, time.perf_counter() - t0)
-    return lks
+    return pairhmm_forward_f64(pairs)
 
 
 def assemble_likelihoods(haplotypes: list, reads_by_sample: dict,

@@ -34,13 +34,9 @@ region fan-out under the global pool of src/bin/lorikeet.rs:29-32).  Here:
   once when the pool starts and handed to each worker.  The JAX package's
   workers always pack so; here the link decides for them as for the
   parent.
-- Each worker routes each batch (``likelihoods._route_remote``): to the
-  service, or onto its own f64 host kernel, which it also runs when the
-  service replies ``"local"`` (only under ``LORIKEET_PALLAS_ROUTE=host``).
-  Under ``auto`` it learns the remote rate from the time it spends
-  sending and waiting.
-  ``LORIKEET_REMOTE_ROUTE`` is ``remote`` by default (every batch to the
-  card); ``auto`` is the JAX package's cost model, ``local`` keeps all.
+- Every pair batch of a run on cards goes to the service; the workers'
+  f64 host kernel runs only under ``--force-cpu`` (``likelihoods``: one
+  rule for where a pair batch runs).
 - No fallback hides the card: a failed launch or readback is an error
   reply, the worker raises ("device service failed"), and ``gather``
   raises in the parent.  Without a service (``--force-cpu`` and no
@@ -55,12 +51,11 @@ one of them covers a site.  So a contig's calls at any ``-t`` are those of
 ``-t 1``.
 
 Workers' counters cross back with each result (pair batches run on a
-worker's host, those of them kept local, ESCALATIONS, GLOBAL_STAGES
-seconds, the spans recorded since the last result, requests sent) and the
-parent adds them to its own; LAUNCHES,
-CARD_LAUNCHES, WIRE_LAUNCHES, WIRE_COUNTS, SW_LAUNCHES, SW_COUNTS and
-DISPATCH_COUNTS["remote"] move in the parent, where the service runs the
-kernels.
+worker's host, ESCALATIONS, GLOBAL_STAGES seconds, the spans recorded
+since the last result, requests sent) and the parent adds them to its
+own; LAUNCHES, CARD_LAUNCHES, WIRE_LAUNCHES, WIRE_COUNTS, SW_LAUNCHES,
+SW_COUNTS and DISPATCH_COUNTS["remote"] move in the parent, where the
+service runs the kernels.
 
 Not ported from the JAX module: its cold-bucket bounce (nvcc builds each
 kernel once, at first use), its ``device_dead`` bounce, which would send a
@@ -83,9 +78,9 @@ _MAX_POOLS = 2        # idle workers cost no CPU, but each holds BAM caches
 #: oldest once this many are in flight, so that the copies and the kernels
 #: of one job overlap the readback of the one before
 SERVICE_DEPTH = 2
-#: the environment a pool reads when it starts (the workers' router, the
-#: wire gate): a pool is kept for one setting of it (see get_pool)
-ROUTE_ENV = ("LORIKEET_REMOTE_ROUTE", "LORIKEET_WIRE_COMPRESS")
+#: the variable a pool reads when it starts (the wire gate): a pool is
+#: kept for one setting of it (see get_pool)
+WIRE_ENV = "LORIKEET_WIRE_COMPRESS"
 #: requests the workers sent to the device service, added up by
 #: ``gather``: pair batches, those of them that went through the worker's
 #: shared-memory segment, SW batches, spans' activity chains, spans'
@@ -187,14 +182,6 @@ def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire,
             readers[key] = state
         return state
 
-    def _local_lks(pairs):
-        """A batch on this worker's f64 host kernel, by its own router's
-        verdict or the service's "local" reply (counted as both "host" and
-        "local")."""
-        L.DISPATCH_COUNTS["local"] += 1
-        with stage("lk.local", into="pairhmm"):
-            return L.compute_pair_likelihoods(pairs, use_cuda=False)
-
     def _service(kind, payload):
         """One request to the parent's device service and its reply."""
         rpc_conn.send((kind, payload, None))
@@ -259,11 +246,10 @@ def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire,
             processing.HAP_COUNTS[key] = 0
         stages = progress.GLOBAL_STAGES
         counters = {"host": L.DISPATCH_COUNTS["host"],
-                    "local": L.DISPATCH_COUNTS["local"],
                     "escalations": dict(PH.ESCALATIONS),
                     "stages": stages, "spans": progress.take_spans(),
                     **sent}
-        L.DISPATCH_COUNTS["host"] = L.DISPATCH_COUNTS["local"] = 0
+        L.DISPATCH_COUNTS["host"] = 0
         PH.ESCALATIONS.update(dict.fromkeys(PH.ESCALATIONS, 0))
         sent.update(dict.fromkeys(sent, 0))
         progress.GLOBAL_STAGES = {} if stages is not None else None
@@ -273,7 +259,6 @@ def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire,
             "torch_imported": torch is not None,
             "cuda_initialized": bool(torch is not None
                                      and torch.cuda.is_initialized()),
-            "perf": dict(L._PERF),
             "foreign_modules": sorted(
                 m for m in sys.modules if m.split(".")[0] in _FOREIGN)}
         result_q.put((tid, "ok", (res, counters)))
@@ -290,33 +275,17 @@ def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire,
     # With spans on, span N's end (the reply, the check, the genotyping)
     # is the span ``worker.finish`` of its tid, inside whatever this worker
     # runs then.
-    pending = None                 # (tid, res, engine, works, seconds)
+    pending = None                 # (tid, res, engine, works)
 
     def _finish(p):
-        tid2, res2, engine2, works2, spent = p
+        tid2, res2, engine2, works2 = p
         try:
             with stage("worker.finish", tid=tid2):
-                t0 = time.perf_counter()
                 with stage("lk.reply_wait", into="pairhmm"):
-                    status, payload = rpc_conn.recv()
-                waited = time.perf_counter() - t0
-                if status == "ok":
-                    with stage("lk.checked", into="pairhmm"):
-                        pairs = [pp for w in works2 for pp in w.pairs]
-                        if L._learning():
-                            # the worker's real cost of a remote batch: the
-                            # pack and send, plus the time it ends up
-                            # blocked on the reply (a fully overlapped batch
-                            # costs only the send); rem_lat is the router's
-                            # separate additive term, not folded in here
-                            _, bytes_est, _ = L._batch_cost_inputs(pairs)
-                            L._update_perf("rem_bps", bytes_est,
-                                           spent + max(waited, 1e-4))
-                        lks = PH.pairhmm_forward_checked(payload, pairs)
-                elif status == "local":
-                    lks = _local_lks([pp for w in works2 for pp in w.pairs])
-                else:
-                    raise RuntimeError(f"device service failed: {payload}")
+                    payload = _reply()
+                with stage("lk.checked", into="pairhmm"):
+                    pairs = [pp for w in works2 for pp in w.pairs]
+                    lks = PH.pairhmm_forward_checked(payload, pairs)
                 _genotype(res2, engine2, works2, lks)
             _put(tid2, res2, engine2)
         except Exception:  # noqa: BLE001 — surface to the parent
@@ -372,11 +341,9 @@ def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire,
                     res, works = _call_span(fasta, bams, contig, cfg,
                                             engine, *sp, defer=True)
                     pairs = [p for w in works for p in w.pairs]
-                    if pairs and L._route_remote(pairs):
-                        t0 = time.perf_counter()
+                    if pairs:
                         with stage("lk.pack", into="pairhmm") as attrs:
                             job = prepare_grouped_jobs(pairs, wire=wire)
-                        spent = time.perf_counter() - t0
                         # a work's pairs are each of its reads against
                         # each haplotype, one packed row a read
                         arrays = job[0]
@@ -406,19 +373,16 @@ def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire,
                         if pending is not None:
                             _finish(pending)
                             pending = None
-                        t0 = time.perf_counter()
                         with stage("lk.send", into="pairhmm"):
                             segment.send(rpc_conn, job, tid)
                         sent["lk_batches"] += 1
                         sent["lk_shm_batches"] += 1
-                        pending = (tid, res, engine, works,
-                                   spent + time.perf_counter() - t0)
+                        pending = (tid, res, engine, works)
                     else:
                         if pending is not None:
                             _finish(pending)
                             pending = None
-                        _genotype(res, engine, works,
-                                  _local_lks(pairs) if pairs else None)
+                        _genotype(res, engine, works, None)
                         done = res
             # after the task's span has closed, so that it travels with
             # its own result
@@ -560,9 +524,8 @@ class SpanWorkerPool:
         haplotype SW, its chunks in the worker's segment) and "sw" on the
         first card.  The list is read at each request: a pool outlives the
         run that started it.  Keeps SERVICE_DEPTH "lk" jobs enqueued
-        before it waits on the oldest.  A batch under LORIKEET_PALLAS_ROUTE=host gets
-        the reply "local": the worker computes it.  Every failure is an
-        error reply: the worker raises, nothing is computed on its host."""
+        before it waits on the oldest.  Every failure is an error reply:
+        the worker raises, nothing is computed on its host."""
         import contextlib
         from multiprocessing.connection import wait as conn_wait
 
@@ -690,9 +653,7 @@ class SpanWorkerPool:
                     # inside the try: a malformed payload is an error reply
                     # and never kills this thread (the workers would wait
                     # on their replies forever)
-                    if kind == "lk" and L._ROUTE_MODE == "host":
-                        reply(conn, ("local", None))
-                    elif kind == "lk":
+                    if kind == "lk":
                         devices = get_devices()
                         # the call whatever wraps it (its own span is
                         # k2.enqueue)
@@ -726,7 +687,7 @@ class SpanWorkerPool:
                 except Exception:  # noqa: BLE001 — the worker raises it
                     reply(conn, ("error", traceback.format_exc()))
                 if batch is not None:
-                    # a failed or "local" batch: its traceback is gone
+                    # a batch whose request failed: its traceback is gone
                     # here, and with it any view of the segment
                     batch.close(strict=False)
                 while len(inflight) >= SERVICE_DEPTH:
@@ -894,7 +855,6 @@ def _add_counters(counters: dict):
     from lorikeet_tpu_torch.ops import pairhmm as PH
     from lorikeet_tpu_torch.utils import progress
     L.DISPATCH_COUNTS["host"] += counters["host"]
-    L.DISPATCH_COUNTS["local"] += counters["local"]
     for key, n in counters["escalations"].items():
         PH.ESCALATIONS[key] += n
     acc = progress.GLOBAL_STAGES
@@ -920,10 +880,9 @@ def get_pool(fasta_path: str, bam_paths: list, cfg, n_workers: int,
     from lorikeet_tpu_torch.processing import _cfg_fingerprint
     # the workers read the device chain's switch from the cfg they were
     # spawned with, and it is not a field of the fingerprint; the pool
-    # reads ROUTE_ENV and where the haplotype SW runs when it starts
+    # reads WIRE_ENV and where the haplotype SW runs when it starts
     key = (_cfg_fingerprint(cfg), getattr(cfg, "device_activity", False),
-           n_workers, device_service,
-           tuple(os.environ.get(k) for k in ROUTE_ENV),
+           n_workers, device_service, os.environ.get(WIRE_ENV),
            device_service and _hap_sw_on_service(cfg))
     pool = _POOLS.get(key)
     if pool is not None:

@@ -72,11 +72,21 @@ def _region(rng, read_len, n_reads=40, n_haps=4):
     return pairs
 
 
-@pytest.mark.parametrize("read_len", [100, 127, 200, 383, 500, 700, 3000])
-def test_kernel_matches_plain_version(cuda, read_len):
+#: read lengths that select each build of the grouped kernel
+KERNEL_READ_LENS = [100, 127, 200, 383, 500, 700, 3000]
+
+
+def _kernel_batch(read_len):
+    """A region of ``read_len``-base reads (40, or 2 past 700 bases) and a
+    region of 60-base ones."""
     rng = np.random.default_rng(read_len)
     n_reads = 40 if read_len <= 700 else 2
-    pairs = _region(rng, read_len, n_reads) + _region(rng, 60, 7, 2)
+    return _region(rng, read_len, n_reads) + _region(rng, 60, 7, 2)
+
+
+@pytest.mark.parametrize("read_len", KERNEL_READ_LENS)
+def test_kernel_matches_plain_version(cuda, read_len):
+    pairs = _kernel_batch(read_len)
     arrays, out_pos = pc.prepare_grouped_jobs(pairs)
     t = pc.to_tensors(arrays, cuda)
     launches = pc.LAUNCHES
@@ -113,7 +123,11 @@ def _pad_row_batch(rng, read_len):
     return pairs
 
 
-@pytest.mark.parametrize("read_len", [1, 31, 100, 255, 511, 512, 3000])
+#: the longest read of each pad-row batch
+PAD_ROW_READ_LENS = [1, 31, 100, 255, 511, 512, 3000]
+
+
+@pytest.mark.parametrize("read_len", PAD_ROW_READ_LENS)
 def test_grouped_kernel_pad_rows_and_odd_block_counts(cuda, read_len):
     """Tiles with 31 and 25 pad rows and full ones; 3 * 2 + 1 + 2 * 2 = 11
     table blocks, not a multiple of 4; read lengths from 1 base to

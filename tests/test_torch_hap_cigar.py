@@ -27,17 +27,17 @@ from lorikeet_tpu.io.fasta import FastaReader as JaxFasta
 from lorikeet_tpu.utils.cigar import calculate_cigar as jax_calculate_cigar
 from lorikeet_tpu_torch import cli
 from lorikeet_tpu_torch import processing as tproc
-from lorikeet_tpu_torch.calling import likelihoods
 from lorikeet_tpu_torch.calling.engine import (CallerConfig,
                                                HaplotypeCallerEngine,
                                                RegionDraft)
 from lorikeet_tpu_torch.io.bam import open_bam
 from lorikeet_tpu_torch.io.fasta import FastaReader
-from lorikeet_tpu_torch.ops import sw_cuda
+from lorikeet_tpu_torch.ops import pairhmm_cuda, sw_cuda
 from lorikeet_tpu_torch.parallel import pool as tpool
 from lorikeet_tpu_torch.parallel import sharding as tshard
 from lorikeet_tpu_torch.utils.cigar import calculate_cigar, calculate_cigars
 from portbench.gen import dataset
+from test_torch_hybrid import _exact_sweep
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(ROOT, "portbench", "configs",
@@ -179,9 +179,10 @@ def test_span_without_pairs_sends_no_request(monkeypatch):
 
 
 def _pooled_call(data, out, device, monkeypatch):
-    # the service answers each pair batch "local": the workers' f64 host
-    # kernel in place of K2's plain version, which is slow on the CPU
-    monkeypatch.setattr(likelihoods, "_ROUTE_MODE", "host")
+    # the service's K2 takes its values from the f64 host kernel: K2's
+    # plain version is slow on the CPU (the service is a thread of this
+    # process, so the stand-in reaches it)
+    monkeypatch.setattr(pairhmm_cuda, "pairhmm_sweep_torch", _exact_sweep)
     monkeypatch.setattr(tproc, "_pool_worthwhile", lambda *a: True)
     monkeypatch.setattr(tproc, "_hap_sw_device", lambda cfg: device)
     monkeypatch.setattr(tshard, "visible_cards", lambda: [CPU])

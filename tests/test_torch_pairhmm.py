@@ -2,13 +2,19 @@
 
 ``pairhmm_sweep_torch`` (the plain torch version of the CUDA kernel, which
 ``pairhmm_grouped_cuda`` takes for CPU tensors) runs through the port's
-packer on the cases of tests/test_pairhmm_pallas.py and is held:
+packer on the cases of tests/test_pairhmm_pallas.py and on the batches the
+card tests give the kernel (tests/test_torch_cuda.py), and is held:
 - against the exact f64 ``pairhmm_forward_np`` at 2e-3 (the bound the TPU
   kernel holds), after the f64 escalation of flushed rows;
 - against the TPU kernel in interpret mode at 1e-4 on rows above -28: both
   are the same f32 sweep, so only f32 exp/log10 from two libraries differ.
 The ported numpy parts must equal the JAX package's exactly.
+``compute_pair_likelihoods`` sends every batch to the device list (CPU
+devices in the cards' place) unless ``use_cuda`` is False, and to the f64
+host kernel then: the one rule for where a pair batch runs.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +26,10 @@ from lorikeet_tpu.ops.pairhmm_pallas import (
 import lorikeet_tpu_torch.ops.pairhmm as tph
 from lorikeet_tpu_torch.calling import likelihoods as tlk
 from lorikeet_tpu_torch.ops import pairhmm_cuda as pc
+from test_torch_cuda import (KERNEL_READ_LENS, PAD_ROW_READ_LENS,
+                             _kernel_batch, _pad_row_batch)
+from test_torch_hybrid import _mixed_batch
+from test_torch_wire import _pairs
 
 BASES = np.frombuffer(b"ACGT", np.uint8)
 DEVICE_TOL = 1e-4     # torch twin vs interpret-mode TPU kernel (f32 both)
@@ -122,8 +132,16 @@ def _region_pairs(seed=5):
     return pairs
 
 
+def _pad_rows(read_len):
+    return _pad_row_batch(np.random.default_rng(7000 + read_len), read_len)
+
+
 CASES = {"ambiguous": _ambiguous_pairs, "multilane": _multilane_pairs,
-         "long_duplicates": _long_duplicate_pairs, "region": _region_pairs}
+         "long_duplicates": _long_duplicate_pairs, "region": _region_pairs,
+         **{f"kernel_{n}": functools.partial(_kernel_batch, n)
+            for n in KERNEL_READ_LENS},
+         **{f"pad_rows_{n}": functools.partial(_pad_rows, n)
+            for n in PAD_ROW_READ_LENS}}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -248,16 +266,45 @@ def test_wrapper_takes_plain_version_only_on_cpu(monkeypatch):
         pc.pairhmm_forward_grouped(pairs, "cuda")
 
 
-def test_compute_pair_likelihoods_routes_every_batch_to_device(monkeypatch):
+def _long_read_pairs():
+    """Three region pairs and a 700-base read against a 900-base
+    haplotype."""
+    return _pairs(seed=11, n_regions=1, reads_per=2)[:3] \
+        + [(BASES[np.arange(900) % 4], BASES[np.arange(700) % 4],
+            *(np.full(700, v, np.uint8) for v in (30, 45, 45, 10)))]
+
+
+#: a batch of each class a card run gives K2: the cases above, a long read
+#: beside short ones, one pair alone, 150-base rows beside long-read
+#: segments on the 16-row strip (Rpad 384) and 11 table blocks with pad rows
+DISPATCH_CASES = {
+    **{k: CASES[k] for k in ("ambiguous", "multilane", "long_duplicates",
+                             "region")},
+    "long_reads": _long_read_pairs,
+    "one_pair": lambda: _pairs(seed=12)[:1],
+    "wide_rows": lambda: _mixed_batch(np.random.default_rng(384),
+                                      (260, 301, 383)),
+    "pad_rows": functools.partial(_pad_rows, 100)}
+
+
+@pytest.mark.parametrize("use_cuda", [True, None, False],
+                         ids=["cuda", "default", "host"])
+@pytest.mark.parametrize("case", sorted(DISPATCH_CASES))
+def test_compute_pair_likelihoods_routes_every_batch_to_device(
+        monkeypatch, case, use_cuda):
+    """One batch, one step of DISPATCH_COUNTS: the device list's K2 (CPU
+    devices in the cards' place) for True and None, the f64 host kernel
+    for False; either way the JAX package's exact f64 values."""
     from lorikeet_tpu_torch.parallel import sharding
     monkeypatch.setattr(sharding, "_DEVICES", [torch.device("cpu")])
-    pairs = _region_pairs(9)
-    before = dict(tlk.DISPATCH_COUNTS)
-    got = tlk.compute_pair_likelihoods(pairs, use_cuda=True)
-    assert tlk.DISPATCH_COUNTS["device"] == before["device"] + 1
-    assert tlk.DISPATCH_COUNTS["host"] == before["host"]
-    want = tlk.compute_pair_likelihoods(pairs, use_cuda=False)
-    assert tlk.DISPATCH_COUNTS["host"] == before["host"] + 1
+    monkeypatch.setattr(tlk, "DISPATCH_COUNTS",
+                        dict.fromkeys(tlk.DISPATCH_COUNTS, 0))
+    pairs = DISPATCH_CASES[case]()
+    got = tlk.compute_pair_likelihoods(pairs, use_cuda=use_cuda)
+    side = "host" if use_cuda is False else "device"
+    assert tlk.DISPATCH_COUNTS == {"device": 0, "host": 0, "remote": 0,
+                                   side: 1}
+    want = np.array([jph.pairhmm_forward_np(*p) for p in pairs])
     np.testing.assert_allclose(got, want, atol=EXACT_TOL)
 
 

@@ -3,14 +3,15 @@
 The workers are spawned processes that hold no card; the parent's device
 service runs the plain versions here (CPU devices in the cards' place in
 ``parallel.sharding``, ``sw_cuda.SW_DEVICE`` set to "cpu"), through the
-same requests the cards serve.  Checked: the pooled calls equal the port's serial path and the JAX
-package's; the service takes every pair-HMM batch (and under
-``use_cuda_sw`` every SW batch) and the workers compute none on their own
-host; a deletion carried across a span boundary as the serial loop carries
-it; reuse across genomes, a SIGKILLed worker, a worker error, a failing
-service (an error, never a host result), the pooled `start_engine` VCF
-against the JAX package's byte for byte, and no jax module in the parent or
-in any worker of a pooled CLI run.
+same requests the cards serve.  Checked: the pooled calls equal the port's
+serial path and the JAX package's; the service takes every pair-HMM batch
+(and under ``use_cuda_sw`` every SW batch) and the workers compute none on
+their own host, whatever the JAX package's router variables say; the pool
+key follows the wire gate's variable only; a deletion carried across a span
+boundary as the serial loop carries it; reuse across genomes, a SIGKILLed
+worker, a worker error, a failing service (an error, never a host result),
+the pooled `start_engine` VCF against the JAX package's byte for byte, and
+no jax module in the parent or in any worker of a pooled CLI run.
 """
 import os
 import signal
@@ -156,8 +157,7 @@ def test_device_service_runs_every_batch(genome80, serial80_plain,
     assert _key(pooled.calls) == _key(serial.calls) and serial.calls
     assert pooled.depth_pass_rle == serial.depth_pass_rle
     # one span: its one pair batch ran in the service, none on a host
-    assert tlk.DISPATCH_COUNTS == {"device": 0, "host": 0, "remote": 1,
-                                   "local": 0}
+    assert tlk.DISPATCH_COUNTS == {"device": 0, "host": 0, "remote": 1}
     assert pool_mod.WORKER_COUNTS["lk_batches"] == 1
     if sw_on_card:
         # every SW pair the serial run sent to the plain version went
@@ -467,37 +467,52 @@ def test_wire_jobs_give_the_serial_and_jax_calls(genome80, serial80_plain,
         _key(jax), _key(pooled.calls))) <= 0.1
 
 
-@pytest.mark.parametrize("route", ["remote_local", "pallas_host"])
-def test_batches_kept_on_the_worker_host(genome80, plain_devices,
-                                         monkeypatch, route):
-    """LORIKEET_REMOTE_ROUTE=local: the workers send no pair batch and
-    compute each on their own f64 host kernel; LORIKEET_PALLAS_ROUTE=host
-    (the parent's router): the service replies "local" to each batch and
-    the worker computes it so.  Either way the calls are the serial f64
-    run's, and no K2 launch is made for them."""
+@pytest.mark.parametrize("setting", ["local", "auto"],
+                         ids=["remote_local", "remote_auto"])
+def test_every_worker_batch_reaches_the_service(genome80, serial80_plain,
+                                                plain_devices, monkeypatch,
+                                                setting):
+    """LORIKEET_REMOTE_ROUTE, which the port does not read, set in the
+    workers' environment: each worker's pair batch still goes to the
+    device service, none runs on a worker's host, and the calls are the
+    serial run's on the same (plain) kernels."""
     fasta, bams, _ = genome80
-    if route == "remote_local":
-        monkeypatch.setenv("LORIKEET_REMOTE_ROUTE", "local")
-    else:
-        monkeypatch.setattr(tlk, "_ROUTE_MODE", "host")
-    serial = _serial(fasta, bams, CallerConfig(use_cuda=False))
-    tlk.DISPATCH_COUNTS.update(dict.fromkeys(tlk.DISPATCH_COUNTS, 0))
-    cards = []
-    real = pairhmm_cuda.pairhmm_grouped_cuda
-    monkeypatch.setattr(pairhmm_cuda, "pairhmm_grouped_cuda",
-                        lambda t, card=0: cards.append(card) or real(t, card))
+    serial, _ = serial80_plain
+    pool_mod.shutdown_pool()            # workers spawned with the setting
+    monkeypatch.setenv("LORIKEET_REMOTE_ROUTE", setting)
     cfg = CallerConfig(use_cuda=True, threads=2)
     try:
         pooled, pool = _pooled(fasta, bams, cfg, device_service=True)
     finally:
         pool_mod.shutdown_pool()
     assert _key(pooled.calls) == _key(serial.calls) and serial.calls
-    assert tlk.DISPATCH_COUNTS == {"device": 0, "host": 1, "remote": 0,
-                                   "local": 1}
-    assert pool_mod.WORKER_COUNTS["lk_batches"] == (route == "pallas_host")
-    assert cards == []
+    assert pool_mod.WORKER_COUNTS["lk_batches"] == 1
+    assert tlk.DISPATCH_COUNTS == {"device": 0, "host": 0, "remote": 1}
     reports = list(pool_mod.WORKER_REPORTS.values())
     assert reports and not any(r["torch_imported"] for r in reports)
+
+
+@pytest.mark.parametrize("variable, settings, new", [
+    ("LORIKEET_REMOTE_ROUTE", ("remote", "local"), False),
+    ("LORIKEET_WIRE_COMPRESS", ("0", "1"), True)],
+    ids=["remote_route", "wire_compress"])
+def test_pool_key_follows_the_wire_variable_only(genome80, monkeypatch,
+                                                 variable, settings, new):
+    """A pool is kept for one setting of the one variable it reads when it
+    starts, the wire gate's: changing it between two calls gives a new
+    pool, changing another variable of the JAX package's router the same
+    one."""
+    fasta, bams, _ = genome80
+    cfg = CallerConfig(use_cuda=False, threads=1)
+    monkeypatch.setenv(variable, settings[0])
+    try:
+        first = pool_mod.get_pool(fasta, bams, cfg, 1, device_service=False)
+        monkeypatch.setenv(variable, settings[1])
+        second = pool_mod.get_pool(fasta, bams, cfg, 1,
+                                   device_service=False)
+        assert (second is not first) is new
+    finally:
+        pool_mod.shutdown_pool()
 
 
 def test_pooled_start_engine_vcf_equals_jax(genome260, tmp_path,

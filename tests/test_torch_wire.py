@@ -1,4 +1,4 @@
-"""The port's wire path and cost router against the JAX package, on the CPU.
+"""The port's wire path against the JAX package, on the CPU.
 
 The wire form of a grouped pair-HMM job (``ops/pairhmm_pack.py``) ships
 4-bit base symbols and a u8 codebook index a read lane; the card decodes it
@@ -14,13 +14,10 @@ inputs:
 - wire likelihoods equal flat ones bit for bit, over a device list too,
   and are within 1e-4 of the JAX package's grouped path in interpret mode
   with its wire form forced on;
-- the ``LORIKEET_WIRE_COMPRESS`` gate and the router
-  (``_batch_cost_inputs``, ``_route_device``, ``_route_remote``,
-  ``_update_perf``) give the JAX package's results, verdict by verdict,
-  except for the port's two defaults; the port learns its rates only
-  while a router is on ``auto``.
+- the ``LORIKEET_WIRE_COMPRESS`` gate gives the JAX package's verdict;
+- the JAX package's host/device router is not ported: its variable set,
+  a batch still goes to the device list.
 """
-import copy
 import os
 import subprocess
 import sys
@@ -29,9 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-import lorikeet_tpu.calling.likelihoods as jlk
 import lorikeet_tpu.ops.pairhmm_pallas as P
-from lorikeet_tpu_torch.calling import likelihoods as tlk
 from lorikeet_tpu_torch.ops import pairhmm_cuda as pc
 from lorikeet_tpu_torch.ops import pairhmm_pack as pk
 from lorikeet_tpu_torch.ops.pairhmm import F32_SUSPECT_LOG10
@@ -272,168 +267,31 @@ def test_link_rate_without_a_card(monkeypatch):
     assert pk.prepare_grouped_jobs(_pairs(seed=8))[0]["mode"] == "flat"
 
 
-# ---- the router ----
+# ---- the variables of the deleted router ----
 
-ROUTER_CASES = {"region": lambda: _pairs(seed=10),
-                "long_reads": lambda: _pairs(seed=11, n_regions=1,
-                                             reads_per=2)[:3]
-                + [(BASES[np.arange(900) % 4], BASES[np.arange(700) % 4],
-                    *(np.full(700, v, np.uint8) for v in (30, 45, 45, 10)))],
-                "one_pair": lambda: _pairs(seed=12)[:1]}
-
-#: _PERF states: nothing learnt, one side learnt, host or device cheaper,
-#: few and many remote samples, and a turn before an exploration turn
-PERF_STATES = {
-    "cold": {},
-    "host_only": {"host_cps": 1e9},
-    "remote_unlearnt": {"host_cps": 1e9, "n_batch": 1},
-    "tunnel": {"host_cps": 1e9, "dev_bps": 27e6, "rem_bps": 27e6,
-               "rem_bps_n": 5},
-    "pcie": {"host_cps": 5e7, "dev_bps": 16e9, "dev_lat": 0.001,
-             "rem_bps": 16e9, "rem_bps_n": 1},
-    "remote_young": {"host_cps": 1e12, "dev_bps": 1e6, "rem_bps": 1e6,
-                     "rem_bps_n": 2},
-    "explore_next": {"host_cps": 1e9, "dev_bps": 27e6, "rem_bps": 27e6,
-                     "rem_bps_n": 9, "n_batch": jlk._EXPLORE_EVERY - 1},
-}
+ROUTE_PROBE = """
+import numpy as np
+import torch
+from lorikeet_tpu_torch.calling import likelihoods as L
+from lorikeet_tpu_torch.parallel import sharding
+sharding._DEVICES = [torch.device("cpu")]
+hap = np.frombuffer(b"ACGT" * 12, np.uint8)
+read = hap[5:25].copy()
+row = tuple(np.full(20, v, np.uint8) for v in (30, 45, 45, 10))
+L.compute_pair_likelihoods([(hap, read, *row)])
+print(L.DISPATCH_COUNTS["device"], L.DISPATCH_COUNTS["host"])
+"""
 
 
-def _perf(state):
-    base = {"host_cps": None, "dev_bps": None, "dev_lat": 0.06,
-            "n_batch": 0, "rem_bps": None, "rem_lat": 0.01}
-    return {**base, **state}
-
-
-@pytest.mark.parametrize("case", sorted(ROUTER_CASES))
-def test_batch_cost_inputs_match_jax(case):
-    pairs = ROUTER_CASES[case]()
-    assert tlk._batch_cost_inputs(pairs) == jlk._batch_cost_inputs(pairs)
-    assert tlk.ROWS_CAP == P.ROWS_CAP
-    assert all(tlk.lane_fit_bucket(r) == jlk.lane_fit_bucket(r)
-               for r in range(0, 5000, 7))
-
-
-@pytest.mark.parametrize("mode", ["device", "host", "auto"])
-@pytest.mark.parametrize("state", sorted(PERF_STATES))
-def test_route_device_verdicts_match_jax(monkeypatch, state, mode):
-    """Twenty batches in turn from one _PERF state: the same verdict at
-    every batch (exploration turns included) and the same state after."""
-    perf = _perf(PERF_STATES[state])
-    monkeypatch.setattr(tlk, "_PERF", copy.deepcopy(perf))
-    monkeypatch.setattr(jlk, "_PERF", copy.deepcopy(perf))
-    monkeypatch.setattr(tlk, "_ROUTE_MODE", mode)
-    monkeypatch.setattr(jlk, "_ROUTE_MODE", mode)
-    batches = [ROUTER_CASES[c]() for c in sorted(ROUTER_CASES)]
-    mine = [tlk._route_device(batches[k % 3]) for k in range(20)]
-    theirs = [jlk._route_device(batches[k % 3]) for k in range(20)]
-    assert mine == theirs
-    assert tlk._PERF == jlk._PERF
-    if mode != "auto":
-        assert mine == [mode == "device"] * 20
-
-
-@pytest.mark.parametrize("mode", ["remote", "local", "auto"])
-@pytest.mark.parametrize("state", sorted(PERF_STATES))
-def test_route_remote_verdicts_match_jax(monkeypatch, state, mode):
-    perf = _perf(PERF_STATES[state])
-    monkeypatch.setattr(tlk, "_PERF", copy.deepcopy(perf))
-    monkeypatch.setattr(jlk, "_PERF", copy.deepcopy(perf))
-    monkeypatch.setenv("LORIKEET_REMOTE_ROUTE", mode)
-    batches = [ROUTER_CASES[c]() for c in sorted(ROUTER_CASES)]
-    mine = [tlk._route_remote(batches[k % 3]) for k in range(20)]
-    theirs = [jlk._route_remote(batches[k % 3]) for k in range(20)]
-    assert mine == theirs
-    assert tlk._PERF == jlk._PERF
-    if mode != "auto":
-        assert mine == [mode == "remote"] * 20
-
-
-def test_update_perf_matches_jax(monkeypatch):
-    """The EWMA and its sample counts, a too-short time ignored."""
-    monkeypatch.setattr(tlk, "_PERF", _perf({}))
-    monkeypatch.setattr(jlk, "_PERF", _perf({}))
-    for key, amount, seconds in [("host_cps", 3e8, 0.4), ("dev_bps", 5e6, 0.0),
-                                 ("dev_bps", 5e6, 0.02), ("host_cps", 1e8, 0.3),
-                                 ("rem_bps", 2e6, 1e-7), ("rem_bps", 2e6, 0.5)]:
-        tlk._update_perf(key, amount, seconds)
-        jlk._update_perf(key, amount, seconds)
-        assert tlk._PERF == jlk._PERF
-
-
-def test_port_defaults_route_every_batch_to_the_card():
-    """The one deliberate difference from the JAX package: with neither
-    variable set, the port routes every batch to the card
-    (LORIKEET_PALLAS_ROUTE=device, LORIKEET_REMOTE_ROUTE=remote), where the
-    JAX package's auto would learn first on the host."""
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("LORIKEET_PALLAS_ROUTE", "LORIKEET_REMOTE_ROUTE")}
-    code = ("import numpy as np\n"
-            "from lorikeet_tpu_torch.calling import likelihoods as L\n"
-            "p = [(np.zeros(50, np.uint8),) + (np.zeros(20, np.uint8),) * 5]\n"
-            "print(L._ROUTE_MODE, L._route_device(p), L._route_remote(p),"
-            " L._PERF['n_batch'])\n")
-    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, cwd=REPO, env=env, timeout=120)
+@pytest.mark.parametrize("setting", ["host", "auto"])
+def test_route_variables_are_not_read(setting):
+    """The port has one rule for where a pair batch runs: with
+    LORIKEET_PALLAS_ROUTE set (it is not read) a batch of a fresh process
+    with ``use_cuda`` None goes to the device list, a CPU stand-in for the
+    card here, and never to the host kernel."""
+    env = {**os.environ, "LORIKEET_PALLAS_ROUTE": setting}
+    res = subprocess.run([sys.executable, "-c", ROUTE_PROBE],
+                         capture_output=True, text=True, cwd=REPO, env=env,
+                         timeout=120)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.split() == ["device", "True", "True", "0"]
-
-
-def test_compute_pair_likelihoods_routes_and_learns(monkeypatch):
-    """Under auto the first batch runs on the host (host_cps learnt), the
-    second on the device (dev_bps learnt), as the JAX package's router
-    starts; both give the f64 values within the escalation bound."""
-    from lorikeet_tpu_torch.parallel import sharding
-    monkeypatch.setattr(sharding, "_DEVICES", [CPU])
-    monkeypatch.setattr(tlk, "_PERF", _perf({}))
-    monkeypatch.setattr(tlk, "_ROUTE_MODE", "auto")
-    monkeypatch.setattr(tlk, "DISPATCH_COUNTS",
-                        dict.fromkeys(tlk.DISPATCH_COUNTS, 0))
-    pairs = _pairs(seed=13)
-    first = tlk.compute_pair_likelihoods(pairs, use_cuda=True)
-    assert tlk.DISPATCH_COUNTS == {"device": 0, "host": 1, "remote": 0,
-                                   "local": 0}
-    assert tlk._PERF["host_cps"] > 0 and tlk._PERF["dev_bps"] is None
-    second = tlk.compute_pair_likelihoods(pairs, use_cuda=True)
-    assert tlk.DISPATCH_COUNTS["device"] == 1
-    assert tlk._PERF["dev_bps"] > 0 and tlk._PERF["n_batch"] == 2
-    np.testing.assert_allclose(second, first, atol=2e-3)
-    monkeypatch.setattr(tlk, "_ROUTE_MODE", "host")
-    tlk.compute_pair_likelihoods(pairs, use_cuda=True)
-    assert tlk.DISPATCH_COUNTS["host"] == 2
-
-
-@pytest.mark.parametrize("pallas, remote, want", [
-    ("device", None, False), ("host", "remote", False),
-    ("device", "local", False), ("auto", None, True),
-    ("device", "auto", True)],
-    ids=["defaults", "host_remote", "device_local", "pallas_auto",
-         "remote_auto"])
-def test_learning_only_under_auto(monkeypatch, pallas, remote, want):
-    """A batch pays for the cost inputs and the rate update only while one
-    router (the parent's or a worker's) is on auto and reads the rates."""
-    monkeypatch.setattr(tlk, "_ROUTE_MODE", pallas)
-    if remote is None:
-        monkeypatch.delenv("LORIKEET_REMOTE_ROUTE", raising=False)
-    else:
-        monkeypatch.setenv("LORIKEET_REMOTE_ROUTE", remote)
-    assert tlk._learning() is want
-
-
-@pytest.mark.parametrize("use_cuda", [True, False], ids=["device", "host"])
-def test_defaults_learn_nothing(monkeypatch, use_cuda):
-    """Under the port's defaults a batch on either side leaves the router's
-    state as it was, and gives the f64 values within the escalation
-    bound."""
-    from lorikeet_tpu_torch.parallel import sharding
-    monkeypatch.setattr(sharding, "_DEVICES", [CPU])
-    monkeypatch.setattr(tlk, "_ROUTE_MODE", "device")
-    monkeypatch.delenv("LORIKEET_REMOTE_ROUTE", raising=False)
-    monkeypatch.setattr(tlk, "_PERF", _perf({}))
-    monkeypatch.setattr(tlk, "DISPATCH_COUNTS",
-                        dict.fromkeys(tlk.DISPATCH_COUNTS, 0))
-    pairs = _pairs(seed=17)
-    got = tlk.compute_pair_likelihoods(pairs, use_cuda=use_cuda)
-    assert tlk._PERF == _perf({})
-    assert tlk.DISPATCH_COUNTS["device" if use_cuda else "host"] == 1
-    np.testing.assert_allclose(got, tlk.pairhmm_forward_f64(pairs),
-                               atol=2e-3)
+    assert res.stdout.split() == ["1", "0"]
