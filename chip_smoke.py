@@ -53,7 +53,11 @@ Phases, one JSON line each; any failure exits non-zero without the final
            the card; K3 launched by those batches alone without
            --pallas-sw) and on the host on the f64 legs and `gpu_hosthap`,
            the same CIGARs and SW pairs on every leg of the host's activity
-           chain; and the VCFs byte-identical with and without --pallas-sw
+           chain; every graph that reaches the seq-graph step recovered
+           and zipped in C++ on every leg of every phase (`asm_counts`:
+           asm_native_zip == asm_graphs, 0 under --use-adaptive-pruning,
+           the -t 4 legs' asm_graphs those of their -t 1 legs); and the
+           VCFs byte-identical with and without --pallas-sw
            (card legs; f64 legs) and with the haplotype SW on the card and
            on the host (`gpu_hosthap` and `gpu`).
 7. pool    three `call -t 4` legs on the same genome through the span-worker
@@ -1048,6 +1052,7 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
 
     from lorikeet_tpu_torch import cli
     from lorikeet_tpu_torch import processing
+    from lorikeet_tpu_torch.assembly import graph
     from lorikeet_tpu_torch.calling import engine
     from lorikeet_tpu_torch.calling import likelihoods as lk
     from lorikeet_tpu_torch.ops import pairhmm as ph
@@ -1144,6 +1149,7 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
     lk.DISPATCH_COUNTS.update(device=0, host=0, remote=0)
     pool.WORKER_COUNTS.update(dict.fromkeys(pool.WORKER_COUNTS, 0))
     processing.HAP_COUNTS.update(dict.fromkeys(processing.HAP_COUNTS, 0))
+    graph.take_asm_counts()
     pool.SPAN_RERUNS.update(spans=0)
     pool.WORKER_REPORTS.clear()
     ph.ESCALATIONS.update(checked=0, escalated=0)
@@ -1189,6 +1195,14 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
     check(not errors, f"{label}: genome errors {errors}")
     out = next(iter(genomes.values()))
     esc = dict(ph.ESCALATIONS)
+    # the assembly graphs that reached the seq-graph step, the parent's and
+    # the workers': every one zipped in C++ with its dangling ends
+    # recovered there, none under adaptive pruning (the kmer-graph path)
+    asm = {k: n + pool.WORKER_COUNTS[k]
+           for k, n in graph.take_asm_counts().items()}
+    check(asm["asm_native_zip"] == (0 if "--use-adaptive-pruning" in extra
+                                    else asm["asm_graphs"]),
+          f"{label}: assembly graphs {asm}")
     leg = {"leg": label, "mode": mode, "threads": threads, "flags": extra,
            "wall_s": wall, **work,
            "pairhmm_s": stages.get("pairhmm"),
@@ -1210,6 +1224,7 @@ def call_leg(label, fasta, bams, outdir, extra, env=None, threads=1,
            "worker_counts": dict(pool.WORKER_COUNTS),
            "hap_counts": {k: n + pool.WORKER_COUNTS[k]
                           for k, n in processing.HAP_COUNTS.items()},
+           "asm_counts": asm,
            "hap_batches": hap_work["batches"],
            "hap_launches": hap_work["launches"],
            "hap_largest_pairs": hap_largest["pairs"],
@@ -1274,6 +1289,8 @@ def call_phase(root):
         # every span's haplotype CIGARs: their SW one K3 batch a span on a
         # card leg (processing._span_hap_cigars), the native aligner on
         # the f64 legs and the host-hap leg
+        check(leg["asm_counts"]["asm_graphs"] > 0,
+              f"{label} leg: assembly graphs {leg['asm_counts']}")
         hap = leg["hap_counts"]
         if on_card and label not in HAP_ON_HOST:
             check(hap["hap_sw_card"] == hap["hap_sw"] > 0
@@ -1433,6 +1450,12 @@ def pool_phase(root, fasta, bams, legs) -> dict:
               and (leg["worker_counts"]["hsw_batches"] > 0) == on_card,
               f"{label}: haplotype SW {hap} (-t 1: {ref_hap}), workers "
               f"sent {leg['worker_counts']}, {reruns} reruns")
+        # the pool's workers took the -t 1 leg's graphs to the seq-graph
+        # step (call_leg checked that C++ zipped each)
+        check(same(leg["asm_counts"]["asm_graphs"],
+                   ref["asm_counts"]["asm_graphs"]),
+              f"{label}: assembly graphs {leg['asm_counts']} (-t 1: "
+              f"{ref['asm_counts']}), {reruns} reruns")
         check(same(leg["checked"], ref["checked"])
               and (reruns > 0 or leg["escalated"] == ref["escalated"]),
               f"{label}: escalations {leg['escalated']}/{leg['checked']}, "

@@ -36,10 +36,24 @@ from lorikeet_tpu_torch.ops.smith_waterman import (
 PRUNE_FACTOR_COVERAGE_THRESHOLD = 10.0
 MAX_KMER_ITERATIONS_TO_ATTEMPT = 6
 _DOT_LOCK = threading.Lock()
+#: the graphs this process's regions took to the seq-graph step and those
+#: of them whose seq graph the native builder zipped (no kmer graph as
+#: Python objects); a pool worker ships them with each result
+#: (parallel/pool.py WORKER_COUNTS)
+ASM_COUNTS = {"asm_graphs": 0, "asm_native_zip": 0}
+_COUNTS_LOCK = threading.Lock()
 KMER_SIZE_ITERATION_INCREASE = 13
 # dangling-end SW alignments with more elements are untrusted
 # (read_threading_graph.rs:69)
 MAX_CIGAR_COMPLEXITY = 3
+
+
+def take_asm_counts() -> dict:
+    """ASM_COUNTS as they stand, and zero them."""
+    with _COUNTS_LOCK:
+        out = dict(ASM_COUNTS)
+        ASM_COUNTS.update(dict.fromkeys(ASM_COUNTS, 0))
+    return out
 
 
 class Edge:
@@ -172,6 +186,7 @@ class ReadThreadingGraph:
         self.cycle_checked = None      # set by build() on the native path
         self.native_pruned = False
         self.native_zip = None     # zipped seq-graph arrays (native path)
+        self.recovered_cyclic = False  # native recovery made a cycle
         self.vertex_last = None    # bytes: last base per vertex (native)
 
     # ---------------- construction ----------------
@@ -224,7 +239,9 @@ class ReadThreadingGraph:
         return e
 
     def build(self, prune_factor: int = None, prepacked=None,
-              allow_zip: bool = False, recovery_on: bool = True):
+              allow_zip: bool = False, recovery_on: bool = True,
+              min_dangling_branch_length: int = 1,
+              min_matching_bases: int = -1, recover_all: bool = False):
         """Thread all pending sequences.  With the native graph library, the
         per-sample multiplicity flushes, the cycle check, and (when
         ``prune_factor`` is a positive int) low-weight chain pruning +
@@ -232,35 +249,43 @@ class ReadThreadingGraph:
         materialized; ``self.cycle_checked`` then holds the cycle verdict
         and ``self.native_pruned`` whether pruning already ran.
 
-        With ``allow_zip``, the C++ library additionally runs the
-        reachability filter + kmer->seq chain zip whenever dangling-end
-        recovery cannot change the graph (no non-ref dangling ends, or
-        ``recovery_on`` False): ``self.native_zip`` then holds the zipped
-        seq-graph arrays and NO kmer-graph objects are materialized at all
-        (vertices/edges stay empty; only the gate fields are valid)."""
+        With ``allow_zip``, the C++ library (native/graph_recover.cpp)
+        also recovers the dangling ends (when ``recovery_on``, with the
+        last three arguments of :meth:`recover_dangling_ends`) and runs the
+        reachability filter + kmer->seq chain zip: ``self.native_zip`` then
+        holds the zipped seq-graph arrays and NO kmer-graph objects are
+        materialized at all (vertices/edges stay empty; only the gate
+        fields are valid).  A graph cyclic before recovery or after it
+        (``self.recovered_cyclic``) comes back as its gates alone.  Where
+        that library declines (too many pruning samples, a capacity
+        overflow), the kmer graph is handed over as without ``allow_zip``."""
         assert not self.built
         k = self.kmer_size
         self.cycle_checked = None
         self.native_pruned = False
         self.native_zip = None
+        self.recovered_cyclic = False
         # native C++ library when the toolchain is present (same thread
         # order, reference first; stable sort keeps sample grouping).  A
         # prepacked operand set is already ref-first, so only sort when the
         # native call will actually consume self.pending
         if prepacked is None:
             self.pending.sort(key=lambda t: not t[3])
-        from lorikeet_tpu_torch.native.graph_native import build_graph_native3
-        native = build_graph_native3(self.pending, k,
-                                     self.num_pruning_samples,
-                                     prune_factor or 0,
-                                     self.start_only_at_existing,
-                                     prepacked=prepacked,
-                                     allow_zip=allow_zip,
-                                     recovery_on=recovery_on)
-        if native is not None and native["zip"] is not None:
-            cyc, n_nonuniq, n_map, nr = native["gates"]
+        from lorikeet_tpu_torch.native import graph_native
+        from lorikeet_tpu_torch.native.graph_recover_native import (
+            build_graph_recover)
+        gated = build_graph_recover(
+            self.pending, k, self.num_pruning_samples, prune_factor or 0,
+            self.start_only_at_existing, prepacked=prepacked,
+            recovery_on=recovery_on,
+            min_dangling_branch_length=min_dangling_branch_length,
+            min_matching_bases=min_matching_bases,
+            recover_all=recover_all) if allow_zip else None
+        if gated is not None:
+            cyc, n_nonuniq, n_map, nr = gated["gates"]
             self._complexity = (n_nonuniq, n_map)
-            self.native_zip = native["zip"]
+            self.native_zip = gated["zip"]
+            self.recovered_cyclic = gated["cyclic_after"]
             self.cycle_checked = cyc
             self.native_pruned = bool(prune_factor) and not cyc
             # sentinel endpoints: nr > 0 means the reference threaded; the
@@ -271,6 +296,11 @@ class ReadThreadingGraph:
             self.pending = []
             self.built = True
             return
+        # the pruned kmer graph handed over (graph_build3 without its zip)
+        native = graph_native.build_graph_native3(
+            self.pending, k, self.num_pruning_samples, prune_factor or 0,
+            self.start_only_at_existing, prepacked=prepacked,
+            allow_zip=False)
         if native is not None:
             (vertices, (e_u, e_v, e_mult, e_ref, e_pm), ref_path, cyc,
              (n_nonuniq, n_map), last_bytes) = native["kmer"]
@@ -1010,6 +1040,20 @@ def haplotypes_from_candidates(ref_bytes: bytes, candidates: list,
     return out
 
 
+def region_pending(ref_bytes: bytes, reads_by_sample: dict,
+                   min_base_quality: int) -> list:
+    """A region's sequences in thread order, for every kmer size:
+    [(name, bytes, count, is_ref, sample index)], the reference first,
+    then each sample's read stretches (read_stretches_batch), samples in
+    sorted order."""
+    pending = [("ref", ref_bytes, 1, True, 0)]
+    for sid, sample in enumerate(sorted(reads_by_sample)):
+        pending += [(name, st, 1, False, sid) for name, st in
+                    read_stretches_batch(reads_by_sample[sample],
+                                         min_base_quality)]
+    return pending
+
+
 def assemble_candidates(
     ref_seq: np.ndarray,
     reads_by_sample: dict,
@@ -1067,18 +1111,13 @@ def assemble_candidates(
     sizes += compute_additional_kmer_sizes(activity_density, sizes)
     attempts = 0
     # quality splitting is kmer-independent: do it once for all sizes
-    sample_order = sorted(reads_by_sample)
-    stretches_by_sample = {
-        s: read_stretches_batch(reads_by_sample[s], min_base_quality)
-        for s in sample_order}
-    base_pending = [("ref", ref_bytes, 1, True, 0)]
-    for sid, sample in enumerate(sample_order):
-        base_pending += [(name, st, 1, False, sid)
-                         for name, st in stretches_by_sample[sample]]
+    base_pending = region_pending(ref_bytes, reads_by_sample,
+                                  min_base_quality)
     from lorikeet_tpu_torch.native.graph_native import pack_pending
     packed = pack_pending(base_pending)
 
     n_results = 0
+    n_graphs = n_native_zip = 0
 
     def _retry_larger_k(k):
         """Append a larger kmer size (read_threading_assembler.rs:419-450):
@@ -1116,12 +1155,16 @@ def assemble_candidates(
         # one shared pending list + one numpy packing across kmer sizes
         # (threading itself skips too-short sequences per k)
         graph.pending = list(base_pending)
-        # the in-C++ zip applies only when nothing downstream can mutate
-        # the kmer graph before the seq-graph conversion
+        # the in-C++ recovery and zip apply only when nothing else
+        # downstream can mutate the kmer graph before the seq-graph
+        # conversion
         graph.build(prune_factor=None if use_adaptive_pruning
                     else prune_factor, prepacked=packed,
                     allow_zip=generate_seq_graph and not use_adaptive_pruning,
-                    recovery_on=recover_dangling_branches)
+                    recovery_on=recover_dangling_branches,
+                    min_dangling_branch_length=min_dangling_branch_length,
+                    min_matching_bases=min_matching_bases,
+                    recover_all=recover_all_dangling_branches)
         if not graph.native_pruned:
             graph.flush_sample()
         if graph.ref_source is None or graph.ref_sink is None:
@@ -1148,6 +1191,8 @@ def assemble_candidates(
                                         max_unpruned_variants)
         elif not graph.native_pruned:
             graph.prune_low_weight_chains(prune_factor)
+        if graph.recovered_cyclic:
+            continue            # the native recovery made a cycle
         recovered = 0
         if graph.native_zip is None and recover_dangling_branches:
             recovered = graph.recover_dangling_ends(
@@ -1165,10 +1210,13 @@ def assemble_candidates(
         if generate_seq_graph:
             # kmer graph -> sequence graph -> simplify -> k-best
             # (read_threading_assembler.rs:272-298 seq-graph pipeline);
-            # the zip ran in C++ when recovery could not apply
+            # the recovery and the zip ran in C++ unless the graph left it
+            # as kmer-graph objects
             from lorikeet_tpu_torch.assembly.seq_graph import (
                 SeqGraph, find_best_haplotypes_seq,
             )
+            n_graphs += 1
+            n_native_zip += graph.native_zip is not None
             sg = (SeqGraph.from_native_zip(*graph.native_zip)
                   if graph.native_zip is not None
                   else SeqGraph.from_kmer_graph(graph))
@@ -1186,4 +1234,7 @@ def assemble_candidates(
             if bases not in candidates:
                 candidates[bases] = (score, bases, k)
 
+    with _COUNTS_LOCK:
+        ASM_COUNTS["asm_graphs"] += n_graphs
+        ASM_COUNTS["asm_native_zip"] += n_native_zip
     return ref_bytes, [c for c in candidates.values() if c is not None]

@@ -58,15 +58,18 @@ def _digest(srcs: list[str], link: list[str]) -> str:
     return h.hexdigest()[:16]
 
 
-def load(name: str, sources: list[str], link: list[str] = ()) -> ctypes.CDLL:
+def load(name: str, sources: list[str], link: list[str] = (),
+         headers: list[str] = ()) -> ctypes.CDLL:
     """Compile (if no library for these sources on this machine exists) and
-    load lib<name>_host_<hash>.so from the given sources."""
+    load lib<name>_host_<hash>.so from the given sources.  ``headers`` are
+    the files the sources include: hashed with them, not compiled."""
     with _LOCK:
         if name in _LIBS:
             return _LIBS[name]
         srcs = [os.path.join(_DIR, s) for s in sources]
+        hashed = srcs + [os.path.join(_DIR, h) for h in headers]
         so_path = os.path.join(
-            BUILD_DIR, f"lib{name}_host_{_digest(srcs, list(link))}.so")
+            BUILD_DIR, f"lib{name}_host_{_digest(hashed, list(link))}.so")
         if not os.path.exists(so_path):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so_path}.{os.getpid()}.tmp"

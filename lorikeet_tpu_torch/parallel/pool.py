@@ -86,12 +86,15 @@ WIRE_ENV = "LORIKEET_WIRE_COMPRESS"
 #: shared-memory segment, SW batches, spans' activity chains, spans'
 #: haplotype SW batches; what the pair batches held: read rows, those of
 #: long-read samples, lanes (the planes' rows, pad rows included, times
-#: Rpad) and the read bases in them; and the spans' haplotype CIGARs, the
-#: SW alignments they took and those the card ran (processing.HAP_COUNTS)
+#: Rpad) and the read bases in them; the spans' haplotype CIGARs, the
+#: SW alignments they took and those the card ran (processing.HAP_COUNTS);
+#: and the assembly graphs that reached the seq-graph step and those the
+#: native builder zipped (assembly.graph.ASM_COUNTS)
 WORKER_COUNTS = {"lk_batches": 0, "lk_shm_batches": 0, "sw_batches": 0,
                  "act_spans": 0, "hsw_batches": 0, "lk_rows": 0,
                  "lk_long_rows": 0, "lk_slots": 0, "lk_bases": 0,
-                 "hap_cigars": 0, "hap_sw": 0, "hap_sw_card": 0}
+                 "hap_cigars": 0, "hap_sw": 0, "hap_sw_card": 0,
+                 "asm_graphs": 0, "asm_native_zip": 0}
 #: spans ``gather_contig`` ran again because a deletion carried from the
 #: spans before covered a site there
 SPAN_RERUNS = {"spans": 0}
@@ -123,6 +126,7 @@ def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire,
     import numpy as np
 
     from lorikeet_tpu_torch import processing
+    from lorikeet_tpu_torch.assembly import graph as asm_graph
     from lorikeet_tpu_torch.calling import likelihoods as L
     from lorikeet_tpu_torch.calling import realign
     from lorikeet_tpu_torch.calling.engine import (
@@ -244,6 +248,8 @@ def _worker_main(wid, cfg, task_q, result_q, rpc_conn, t_spawn, wire,
         for key, n in processing.HAP_COUNTS.items():
             sent[key] += n
             processing.HAP_COUNTS[key] = 0
+        for key, n in asm_graph.take_asm_counts().items():
+            sent[key] += n
         stages = progress.GLOBAL_STAGES
         counters = {"host": L.DISPATCH_COUNTS["host"],
                     "escalations": dict(PH.ESCALATIONS),

@@ -10,7 +10,8 @@
   and a span with no pair past the trivial cases (no request sent);
 - a pooled ``call -t 2`` whose workers send their spans' haplotype SW to
   the device service (``"hsw"`` in the worker's segment): the VCF of the
-  host path, and the counters ``hap_cigars``, ``hap_sw``, ``hap_sw_card``.
+  host path, and the counters ``hap_cigars``, ``hap_sw``, ``hap_sw_card``,
+  ``asm_graphs`` and ``asm_native_zip``.
 """
 import json
 import os
@@ -208,6 +209,8 @@ def test_pooled_call_sends_each_span_one_batch(dense, tmp_path, monkeypatch):
     assert n["hap_cigars"] == host_n["hap_cigars"] > n["hap_sw"] > 0
     assert n["hap_sw"] == host_n["hap_sw"] == n["hap_sw_card"]
     assert host_n["hap_sw_card"] == 0
+    # every graph the workers took to the seq-graph step zipped in C++
+    assert n["asm_native_zip"] == n["asm_graphs"] == host_n["asm_graphs"] > 0
 
 
 # ---- the split modules against their JAX originals -------------------------
@@ -276,29 +279,68 @@ def _reads(rng, haps, read_len=100, depth=12):
     return out
 
 
-@pytest.mark.parametrize("seed", range(4))
-def test_assemble_region_equals_original(seed):
-    """A window with two alternates of SNPs and indels: the split
-    assemble_region (assemble_candidates, the CIGARs in one batch,
-    haplotypes_from_candidates) gives the original's haplotypes."""
+#: portbench/gen seeds of a dense contig (the benchmark's strain mix)
+DENSE_SEEDS = (3141900401, 2 ** 33 + 7, 2 ** 41 + 3)
+
+
+def _dense_regions(seed, root, monkeypatch):
+    """The regions the port's span of one dense 3 kbp contig of ``seed``
+    assembles: [(window, reads by sample, assemble_candidates'
+    keywords)]."""
+    from lorikeet_tpu_torch.calling import engine as tengine
+    with open(CONFIG) as fh:
+        config = {**json.load(fh), "contigs": 1, "contig_kbp": 3}
+    with open(MIX) as fh:
+        mix = {**json.load(fh), "margin": [300, 300]}
+    data = dataset.build(root, config, mix, seed, 0)
+    regions = []
+    real = tengine.assemble_candidates
+
+    def seen(window, reads_by_sample, **kw):
+        regions.append((window, reads_by_sample, kw))
+        return real(window, reads_by_sample, **kw)
+    monkeypatch.setattr(tengine, "assemble_candidates", seen)
+    _works(data, "mag0_c0", None, monkeypatch)
+    monkeypatch.undo()
+    return regions
+
+
+def _jax_reads(reads):
+    from lorikeet_tpu.io.bam import BamRecord as JaxRecord
+    return [JaxRecord(name=r.name, flag=r.flag, tid=r.tid, pos=r.pos,
+                      mapq=r.mapq, cigar=r.cigar, seq=r.seq, qual=r.qual,
+                      sample_index=r.sample_index) for r in reads]
+
+
+@pytest.mark.parametrize("seed", [*range(4), *DENSE_SEEDS])
+def test_assemble_region_equals_original(seed, tmp_path, monkeypatch):
+    """The split assemble_region (assemble_candidates, the CIGARs in one
+    batch, haplotypes_from_candidates) gives the original's haplotypes:
+    seeds 0-3 on a window with two alternates of SNPs and indels, the
+    DENSE_SEEDS on every region of a dense contig of the benchmark's
+    generator, with the engine's keywords."""
     from lorikeet_tpu.assembly.graph import (
         assemble_region as jax_assemble_region)
-    from lorikeet_tpu.io.bam import BamRecord as JaxRecord
     from lorikeet_tpu_torch.assembly.graph import (
         assemble_candidates, haplotypes_from_candidates)
-    rng = np.random.default_rng(100 + seed)
-    ref = rng.choice(np.frombuffer(b"ACGT", np.uint8), 360)
-    haps = [ref, _edit(rng, ref, 3), _edit(rng, ref, 4)]
-    reads = _reads(rng, haps)
-    jax_reads = [JaxRecord(name=r.name, flag=r.flag, tid=r.tid, pos=r.pos,
-                           mapq=r.mapq, cigar=r.cigar, seq=r.seq,
-                           qual=r.qual) for r in reads]
-    want = [(h.bases, h.cigar, h.score, h.is_ref, h.kmer_size)
-            for h in jax_assemble_region(ref, {0: jax_reads})]
-    assert len(want) >= 3
-    ref_bytes, cands = assemble_candidates(ref, {0: reads})
-    pairs = [(ref, np.frombuffer(b, np.uint8)) for _, b, _ in cands]
-    for align_batch in (None, _plain):
-        cigars, _ = calculate_cigars(pairs, align_batch)
-        assert [(h.bases, h.cigar, h.score, h.is_ref, h.kmer_size) for h in
-                haplotypes_from_candidates(ref_bytes, cands, cigars)] == want
+    if seed in DENSE_SEEDS:
+        regions = _dense_regions(seed, str(tmp_path), monkeypatch)
+        assert len(regions) > 5
+    else:
+        rng = np.random.default_rng(100 + seed)
+        ref = rng.choice(np.frombuffer(b"ACGT", np.uint8), 360)
+        haps = [ref, _edit(rng, ref, 3), _edit(rng, ref, 4)]
+        regions = [(ref, {0: _reads(rng, haps)}, {})]
+    for window, reads, kw in regions:
+        want = [(h.bases, h.cigar, h.score, h.is_ref, h.kmer_size)
+                for h in jax_assemble_region(
+                    window, {s: _jax_reads(r) for s, r in reads.items()},
+                    **kw)]
+        assert len(want) >= (1 if seed in DENSE_SEEDS else 3)
+        ref_bytes, cands = assemble_candidates(window, reads, **kw)
+        pairs = [(window, np.frombuffer(b, np.uint8)) for _, b, _ in cands]
+        for align_batch in (None, _plain):
+            cigars, _ = calculate_cigars(pairs, align_batch)
+            assert [(h.bases, h.cigar, h.score, h.is_ref, h.kmer_size)
+                    for h in haplotypes_from_candidates(
+                        ref_bytes, cands, cigars)] == want

@@ -213,6 +213,7 @@ def test_service_over_devices_and_activity(genome80, plain_devices,
     # each device's share holds the batch's whole planes
     counts = dict(pool_mod.WORKER_COUNTS)
     hap = {k: counts.pop(k) for k in ("hap_cigars", "hap_sw", "hap_sw_card")}
+    asm = {k: counts.pop(k) for k in ("asm_graphs", "asm_native_zip")}
     assert counts == {"lk_batches": 1, "lk_shm_batches": 1,
                       "sw_batches": 0, "act_spans": int(activity),
                       "hsw_batches": 0,
@@ -223,6 +224,8 @@ def test_service_over_devices_and_activity(genome80, plain_devices,
     # CPU devices in the cards' place: the haplotype SW on the workers'
     # hosts
     assert hap["hap_cigars"] >= hap["hap_sw"] > 0 == hap["hap_sw_card"]
+    # every graph the workers took to the seq-graph step zipped in C++
+    assert asm["asm_native_zip"] == asm["asm_graphs"] > 0
     reports = [pool_mod.WORKER_REPORTS.get(w.pid) for w in pool.workers]
     assert any(reports)
     assert not any(r["torch_imported"] for r in reports if r)
