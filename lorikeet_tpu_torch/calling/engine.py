@@ -498,17 +498,20 @@ class GenotypingEngine:
         af = self.af_calc.calculate(vc, self.cfg.ploidy)
         forced = self._forced_alleles(vc, given_alleles)
 
-        # calculate_output_allele_subset (genotyping_engine.rs:390-455):
-        # '*' alleles and sites covered by an emitted upstream deletion are
-        # spurious and never output; forced (features-VCF) alleles are kept
-        # regardless of the AF threshold
+        # calculate_output_allele_subset (genotyping_engine.rs:390-455,
+        # GATK's GenotypingEngine): a '*' allele is spurious unless an
+        # emitted upstream deletion covers the site; the site's other
+        # alleles are output whether or not one does.  (The JAX package
+        # suppresses every allele of a covered site, which drops one
+        # strain's variant under another strain's deletion.)  Forced
+        # (features-VCF) alleles are kept regardless of the AF threshold
         covered = self._covered_by_upstream_deletion(vc)
         output_alts = []
         mle_counts = []
         site_is_monomorphic = True
         for a in vc.alternate_alleles:
             plausible = af.passes_threshold(a, self.cfg.stand_min_conf)
-            spurious = a.is_span_del or covered
+            spurious = a.is_span_del and not covered
             site_is_monomorphic &= not (plausible and not spurious)
             if (plausible or a in forced) and not spurious:
                 output_alts.append(a)

@@ -89,12 +89,17 @@ WIRE_ENV = "LORIKEET_WIRE_COMPRESS"
 #: Rpad) and the read bases in them; the spans' haplotype CIGARs, the
 #: SW alignments they took and those the card ran (processing.HAP_COUNTS);
 #: and the assembly graphs that reached the seq-graph step and those the
-#: native builder zipped (assembly.graph.ASM_COUNTS)
+#: native builder zipped (assembly.graph.ASM_COUNTS).  The strain layer
+#: of ``genotype`` counts here too, in the parent: the split contexts it
+#: clustered, those given a variant group, the groups and the strains
+#: (processing adds them from strain.genotype_mode.run_genotype's outputs)
 WORKER_COUNTS = {"lk_batches": 0, "lk_shm_batches": 0, "sw_batches": 0,
                  "act_spans": 0, "hsw_batches": 0, "lk_rows": 0,
                  "lk_long_rows": 0, "lk_slots": 0, "lk_bases": 0,
                  "hap_cigars": 0, "hap_sw": 0, "hap_sw_card": 0,
-                 "asm_graphs": 0, "asm_native_zip": 0}
+                 "asm_graphs": 0, "asm_native_zip": 0,
+                 "strain_contexts": 0, "strain_clustered": 0,
+                 "strain_groups": 0, "strain_strains": 0}
 #: spans ``gather_contig`` ran again because a deletion carried from the
 #: spans before covered a site there
 SPAN_RERUNS = {"spans": 0}

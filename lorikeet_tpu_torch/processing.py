@@ -1364,9 +1364,15 @@ def _process_genome(spec, mode, bams, bam_paths, long_bam_paths, output_dir,
                         genome_name=spec.name)
             elif mode == "genotype":
                 progress.update(spec.name, "resolving strains")
+                from lorikeet_tpu_torch.parallel.pool import WORKER_COUNTS
                 from lorikeet_tpu_torch.strain.genotype_mode import run_genotype
-                with timer.stage("genotype"):
-                    out.update(run_genotype(
+                from lorikeet_tpu_torch.utils.progress import (annotate,
+                                                               global_stage)
+                # the strain layer, serial here after the pool has gathered
+                # every span: the span `strain`, its parts run_genotype's
+                with timer.stage("genotype"), global_stage(
+                        "strain", genome=spec.name):
+                    strain = run_genotype(
                         spec.fasta, out["vcf"], gdir, bam_paths=bam_paths,
                         contigs=spec.contigs, genome_name=spec.name,
                         qual_by_depth_filter=getattr(
@@ -1374,7 +1380,15 @@ def _process_genome(spec, mode, bams, bam_paths, long_bam_paths, output_dir,
                         min_variant_depth=getattr(
                             cfg, "min_variant_depth_for_genotyping", 10),
                         abundance_mode=getattr(
-                            cfg, "abundance_mode", "leftover")))
+                            cfg, "abundance_mode", "leftover"))
+                    annotate(samples=len(bam_paths or ()),
+                             contexts=strain["n_contexts"])
+                out.update(strain)
+                for key, n in (("strain_contexts", "n_contexts"),
+                               ("strain_clustered", "n_clustered"),
+                               ("strain_groups", "n_variant_groups"),
+                               ("strain_strains", "n_strains")):
+                    WORKER_COUNTS[key] += strain[n]
             out["timings"] = timer.timings()
             results[spec.name] = out
         except Exception as exc:  # noqa: BLE001

@@ -20,6 +20,7 @@ Contracts:
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 
@@ -28,6 +29,7 @@ from lorikeet_tpu_torch.io.vcf import read_vcf
 from lorikeet_tpu_torch.models.variants import Allele, Genotype, VariantContext
 from lorikeet_tpu_torch.strain.ani import site_passes
 from lorikeet_tpu_torch.strain.consensus import _write_fasta
+from lorikeet_tpu_torch.utils.progress import add_span, global_stage
 
 
 def split_contexts(contexts, qual_by_depth_filter=25.0,
@@ -37,7 +39,13 @@ def split_contexts(contexts, qual_by_depth_filter=25.0,
     min-variant-depth-for-genotyping; non-qualifying sites are returned in
     ``filtered`` so the genotype-mode VCF keeps every call
     (variant_context_utils.rs:607-724, lorikeet_engine.rs:628
-    split_contexts.extend(filtered_contexts))."""
+    split_contexts.extend(filtered_contexts)).  A qualifying biallelic
+    site below min-variant-depth is dropped, as there.  A qualifying
+    multi-allelic site none of whose alleles is kept goes to ``filtered``
+    whole: a multi-allelic site carries a sample's alt depth into its
+    split only at GQ 100 or more, which the genotyper's GQ (capped at 99,
+    calling/engine.py) never reaches, so without this every multi-allelic
+    call vanished from the genotype-mode VCF (the JAX package drops it)."""
     out = []
     filtered = []
     for vc in contexts:
@@ -60,6 +68,7 @@ def split_contexts(contexts, qual_by_depth_filter=25.0,
                 vc.attributes.setdefault("_ALT_INDEX", 1)
                 out.append(vc)
             continue
+        n_split = len(out)
         for ai, alt in enumerate(alts, start=1):
             # multiallelic: rebuild 2-allele genotypes per alt; only
             # confident samples (GQ >= 100) carry their alt depth/PL into
@@ -97,6 +106,8 @@ def split_contexts(contexts, qual_by_depth_filter=25.0,
             split.attributes["DP"] = new_depth
             split.attributes["_ALT_INDEX"] = 1
             out.append(split)
+        if len(out) == n_split:
+            filtered.append(vc)
     return out, filtered
 
 
@@ -153,9 +164,11 @@ def cluster_variants(contexts, min_cluster_size: int = 5,
             # water-table traversal can orphan interior sub-groups), while
             # HDBSCAN up to ~8 dims separates the true profiles exactly.
             from lorikeet_tpu_torch.strain.umap import umap_embed
-            X = umap_embed(X, n_components=2, seed=random_state)
-        labels = HDBSCAN(min_cluster_size=mcs, allow_single_cluster=True,
-                         copy=True).fit_predict(X).astype(np.int64)
+            with global_stage("strain.umap"):
+                X = umap_embed(X, n_components=2, seed=random_state)
+        with global_stage("strain.hdbscan"):
+            labels = HDBSCAN(min_cluster_size=mcs, allow_single_cluster=True,
+                             copy=True).fit_predict(X).astype(np.int64)
     groups = sorted(set(labels.tolist()) - {-1})
     n_groups = (max(groups) + 1) if groups else 0
     sep = np.full((n_groups, n_groups), np.inf)
@@ -167,11 +180,19 @@ def cluster_variants(contexts, min_cluster_size: int = 5,
         # depth space such islands have near-zero separation, so read
         # linkage is allowed to stitch them back, while genuinely distinct
         # strains keep large separations and stay excluded.
+        #
+        # The scale is the spread a sample: the mean distance of a member
+        # from its centroid over the square root of the samples.  (The
+        # JAX package divides by the distance itself, which grows as that
+        # root with the samples for noise alike in each: at 12 samples of
+        # 15x three strains HDBSCAN splits cleanly read 2.3-3.0 there, and
+        # the gate merged them.)  Halves of one noisy cloud still read
+        # under the gate: their centroids lie within a spread a sample.
         X = X_orig
         centroids = {g: X[labels == g].mean(axis=0) for g in groups}
         spreads = [np.linalg.norm(X[labels == g] - centroids[g], axis=1).mean()
                    for g in groups]
-        scale = max(float(np.mean(spreads)), 1e-9)
+        scale = max(float(np.mean(spreads)) / np.sqrt(X.shape[1]), 1e-9)
         np.fill_diagonal(sep, 0.0)
         for i, gi in enumerate(groups):
             for gj in groups[i + 1:]:
@@ -347,37 +368,53 @@ def run_genotype(reference: str, vcf_path: str, output_dir: str,
                  abundance_mode: str = "leftover") -> dict:
     """Cluster variants into variant groups, link groups into strains via
     read linkage (linkage_engine.rs:73), estimate abundances, write strain
-    FASTAs + coverage tables, and rewrite the VCF with VG/ST annotations."""
+    FASTAs + coverage tables, and rewrite the VCF with VG/ST annotations.
+
+    With spans on (utils.progress) its parts are the spans
+    ``strain.split``, ``strain.umap`` and ``strain.hdbscan``
+    (cluster_variants), ``strain.linkage`` (the BAMs reopened and linked),
+    ``strain.em`` and ``strain.write``.  Its outputs count the split
+    contexts clustered (``n_contexts``), those given a group
+    (``n_clustered``), the groups and the strains."""
     from lorikeet_tpu_torch.io.bam import open_bam
+    from lorikeet_tpu_torch.strain.link_alleles import linkage_contexts
     from lorikeet_tpu_torch.strain.linkage import LinkageEngine
 
     os.makedirs(output_dir, exist_ok=True)
     fasta = FastaReader(reference)
-    contexts, vcf_contigs, samples = read_vcf(vcf_path)
-    if not samples:
-        samples = ["sample0"]
-    genome = genome_name or os.path.splitext(os.path.basename(reference))[0]
-    contig_names = contigs if contigs is not None else (vcf_contigs
-                                                       or fasta.names)
+    with global_stage("strain.split"):
+        contexts, vcf_contigs, samples = read_vcf(vcf_path)
+        if not samples:
+            samples = ["sample0"]
+        genome = genome_name or os.path.splitext(
+            os.path.basename(reference))[0]
+        contig_names = contigs if contigs is not None else (vcf_contigs
+                                                           or fasta.names)
 
-    split, filtered = split_contexts(contexts, qual_by_depth_filter,
-                                     min_variant_depth=min_variant_depth)
+        split, filtered = split_contexts(
+            contexts, qual_by_depth_filter,
+            min_variant_depth=min_variant_depth)
     labels, separations = cluster_variants(split)
     groups = sorted(set(labels.tolist()) - {-1})
     for vc, lab in zip(split, labels):
         vc.attributes["VG"] = int(lab)
 
-    outputs = {"n_variant_groups": len(groups)}
+    outputs = {"n_variant_groups": len(groups), "n_contexts": len(split),
+               "n_clustered": int((labels != -1).sum())}
 
     # --- link variant groups into strains via read co-occurrence ---
     grouped = {g: [vc for vc, lab in zip(split, labels) if lab == g]
                for g in groups}
     if bam_paths:
-        bams = [open_bam(p) for p in bam_paths]
-        # vc.tid indexes the VCF's contig list; each BAM resolves its own
-        # tid by contig name inside the linkage fetch (headers may differ)
-        engine = LinkageEngine(grouped, separations)
-        strain_groups = engine.run_linkage(bams, vcf_contigs or None)
+        with global_stage("strain.linkage"):
+            bams = [open_bam(p) for p in bam_paths]
+            # vc.tid indexes the VCF's contig list; each BAM resolves its
+            # own tid by contig name inside the linkage fetch (headers may
+            # differ)
+            engine = LinkageEngine(
+                linkage_contexts(grouped, fasta, vcf_contigs or contig_names),
+                separations)
+            strain_groups = engine.run_linkage(bams, vcf_contigs or None)
     else:
         # no reads available (summarise-style input): strain = variant group
         strain_groups = [[g] for g in groups]
@@ -394,6 +431,7 @@ def run_genotype(reference: str, vcf_path: str, output_dir: str,
             vc.attributes["ST"] = st if len(st) > 1 else st[0]
 
     # --- abundance EM per sample over strains ---
+    t_em = time.perf_counter_ns()
     X = depth_matrix(split) if split else np.zeros((0, len(samples)))
     membership = [group_to_strains.get(int(lab), []) for lab in labels]
     # reference-strain heuristic (abundance_calculator_engine.rs:485-500 +
@@ -430,9 +468,12 @@ def run_genotype(reference: str, vcf_path: str, output_dir: str,
         outputs["reference_strain_present"] = bool(
             reference_present and ref_index in kept_ids)
         outputs["abundance_mode"] = "reference"
-        return _finish_genotype_outputs(
-            outputs, strain_groups, grouped, contig_names, vcf_contigs,
-            fasta, output_dir, genome, split, filtered, samples, vcf_path)
+        add_span("strain.em", t_em)
+        with global_stage("strain.write"):
+            return _finish_genotype_outputs(
+                outputs, strain_groups, grouped, contig_names, vcf_contigs,
+                fasta, output_dir, genome, split, filtered, samples,
+                vcf_path)
     with open(coverage_path, "w") as out:
         out.write("strainID\t" + "\t".join(samples) + "\n")
         thetas = [abundance_em(X[:, s] if len(split) else np.zeros(0),
@@ -478,9 +519,11 @@ def run_genotype(reference: str, vcf_path: str, output_dir: str,
                       + "\t".join(f"{v:.6f}" for v in ref_row) + "\n")
     outputs["strain_coverages"] = coverage_path
     outputs["reference_strain_present"] = reference_present
-    return _finish_genotype_outputs(
-        outputs, strain_groups, grouped, contig_names, vcf_contigs,
-        fasta, output_dir, genome, split, filtered, samples, vcf_path)
+    add_span("strain.em", t_em)
+    with global_stage("strain.write"):
+        return _finish_genotype_outputs(
+            outputs, strain_groups, grouped, contig_names, vcf_contigs,
+            fasta, output_dir, genome, split, filtered, samples, vcf_path)
 
 
 def _finish_genotype_outputs(outputs, strain_groups, grouped, contig_names,

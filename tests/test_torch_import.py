@@ -282,17 +282,21 @@ def _shared_files():
     return sorted(found)
 
 
-def _python_code(path, rename, swap=None):
+def _python_code(path, rename, swaps=(), transform=None):
     """The file's syntax tree without docstrings (comments never reach
-    it), as text; ``swap`` (old, new) replaces one line after the rename."""
+    it), as text; each of ``swaps`` (old, new) replaces one piece of text
+    after the rename, and ``transform`` (an ast.NodeTransformer) rewrites
+    the tree."""
     with open(path) as fh:
         text = fh.read()
     if rename:
         text = text.replace("lorikeet_tpu_torch", "lorikeet_tpu")
-    if swap:
-        assert text.count(swap[0]) == 1, swap[0]
-        text = text.replace(*swap)
+    for old, new in swaps:
+        assert text.count(old) == 1, old
+        text = text.replace(old, new)
     tree = ast.parse(text)
+    if transform is not None:
+        tree = transform.visit(tree)
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
         if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
@@ -333,13 +337,92 @@ def test_copied_host_module_equals_its_original(rel):
         assert _cpp_code(mine) == _cpp_code(theirs)
 
 
+def _called(node, names) -> bool:
+    """Whether ``node`` is a call of a function named one of ``names``."""
+    if not isinstance(node, ast.Call):
+        return False
+    func = node.func
+    return getattr(func, "id", getattr(func, "attr", None)) in names
+
+
+class _Uninstrumented(ast.NodeTransformer):
+    """A tree without the port's spans: each ``with global_stage(...)``
+    replaced by its body, the calls of ``add_span`` and the clock reads
+    they are handed left out, and the imports of those names and of
+    ``time``."""
+
+    NAMES = {"global_stage", "add_span"}
+
+    def visit_With(self, node):
+        self.generic_visit(node)
+        if all(_called(i.context_expr, {"global_stage"})
+               for i in node.items):
+            return node.body
+        return node
+
+    def visit_Expr(self, node):
+        return None if _called(node.value, {"add_span"}) else node
+
+    def visit_Assign(self, node):
+        return None if _called(node.value, {"perf_counter_ns"}) else node
+
+    def visit_ImportFrom(self, node):
+        node.names = [a for a in node.names if a.name not in self.NAMES]
+        return node if node.names else None
+
+    def visit_Import(self, node):
+        node.names = [a for a in node.names if a.name != "time"]
+        return node if node.names else None
+
+
+#: the port's departures from strain/genotype_mode.py, put into the
+#: original: (1) a qualifying multi-allelic site none of whose alleles is
+#: kept goes to ``filtered`` whole (the original dropped it from the
+#: genotype-mode VCF); (2) the separation's scale is the spread a sample;
+#: (3) the read linkage matches each indel's extended alt
+#: (strain/link_alleles.py); (4) the outputs count the split contexts and
+#: those clustered
+GENOTYPE_DEPARTURES = [
+    ("""            continue
+        for ai, alt in enumerate(alts, start=1):""",
+     """            continue
+        n_split = len(out)
+        for ai, alt in enumerate(alts, start=1):"""),
+    ("""            out.append(split)
+    return out, filtered""",
+     """            out.append(split)
+        if len(out) == n_split:
+            filtered.append(vc)
+    return out, filtered"""),
+    ("scale = max(float(np.mean(spreads)), 1e-9)",
+     "scale = max(float(np.mean(spreads)) / np.sqrt(X.shape[1]), 1e-9)"),
+    ("""    from lorikeet_tpu.strain.linkage import LinkageEngine
+""",
+     """    from lorikeet_tpu.strain.link_alleles import linkage_contexts
+    from lorikeet_tpu.strain.linkage import LinkageEngine
+"""),
+    ("engine = LinkageEngine(grouped, separations)",
+     "engine = LinkageEngine(linkage_contexts(grouped, fasta, "
+     "vcf_contigs or contig_names), separations)"),
+    ("""outputs = {"n_variant_groups": len(groups)}""",
+     """outputs = {"n_variant_groups": len(groups), "n_contexts": len(split),
+               "n_clustered": int((labels != -1).sum())}""")]
+
+
 def test_genotype_mode_differs_from_its_original_only_in_hdbscan():
     """strain/genotype_mode.py is its original's code with one import
-    changed: the port's HDBSCAN for scikit-learn's."""
+    changed, the port's HDBSCAN for scikit-learn's, once the strain
+    layer's spans are taken out, and with the port's departures
+    (GENOTYPE_DEPARTURES) put into the original."""
     rel = "strain/genotype_mode.py"
     port_import = "from lorikeet_tpu.strain.hdbscan import HDBSCAN"
-    assert _python_code(os.path.join(PORT_DIR, rel), True) \
-        != _python_code(os.path.join(ORIGINAL_DIR, rel), False)
-    assert _python_code(os.path.join(PORT_DIR, rel), True, swap=(
-        port_import, "from sklearn.cluster import HDBSCAN")) \
-        == _python_code(os.path.join(ORIGINAL_DIR, rel), False)
+    port = os.path.join(PORT_DIR, rel)
+    original = os.path.join(ORIGINAL_DIR, rel)
+    assert _python_code(port, True, transform=_Uninstrumented()) \
+        != _python_code(original, False, swaps=GENOTYPE_DEPARTURES)
+    assert _python_code(port, True) \
+        != _python_code(port, True, transform=_Uninstrumented())
+    assert _python_code(port, True, swaps=[
+        (port_import, "from sklearn.cluster import HDBSCAN")],
+        transform=_Uninstrumented()) \
+        == _python_code(original, False, swaps=GENOTYPE_DEPARTURES)

@@ -214,6 +214,10 @@ def test_service_over_devices_and_activity(genome80, plain_devices,
     counts = dict(pool_mod.WORKER_COUNTS)
     hap = {k: counts.pop(k) for k in ("hap_cigars", "hap_sw", "hap_sw_card")}
     asm = {k: counts.pop(k) for k in ("asm_graphs", "asm_native_zip")}
+    # a call runs no strain layer
+    strain = ("strain_contexts", "strain_clustered", "strain_groups",
+              "strain_strains")
+    assert {k: counts.pop(k) for k in strain} == dict.fromkeys(strain, 0)
     assert counts == {"lk_batches": 1, "lk_shm_batches": 1,
                       "sw_batches": 0, "act_spans": int(activity),
                       "hsw_batches": 0,
@@ -285,8 +289,8 @@ def boundary_deletions(tmp_path_factory):
     """A deletion in sample 0 ending each of the first three 4 kb spans and
     a SNP in sample 1 inside it, past the span boundary.  With assembly
     regions of at most 100 bp the SNP's region starts at the boundary, so
-    the serial loop suppresses it only through the deletion that its one
-    engine carries over from the span before."""
+    the serial loop gives it the spanning-deletion allele only through the
+    deletion that its one engine carries over from the span before."""
     import numpy as np
 
     from lorikeet_tpu_torch.io.bam_writer import write_bam
@@ -322,16 +326,21 @@ def test_deletion_carried_across_span_boundary(boundary_deletions,
                                                device_service):
     """A worker's span starts from the upstream deletions the serial loop
     would carry into it: the three SNPs that each boundary deletion covers
-    are suppressed at -t 2 as at -t 1, by rerunning those three spans."""
+    carry the spanning-deletion allele '*' at -t 2 as at -t 1 (only a
+    covering deletion emitted upstream makes it real), by rerunning those
+    three spans."""
     fasta, bams, dels = boundary_deletions
     monkeypatch.setattr(tproc, "_chunk_size", lambda n, cfg: BOUNDARY)
     monkeypatch.setattr(pool_mod, "SPAN_RERUNS", {"spans": 0})
     cfg = CallerConfig(use_cuda=device_service, max_assembly_region_size=100,
                        threads=2)
     serial = _serial(fasta, bams, cfg)
-    # the three deletions (left-aligned, so compared by length) and no SNP
+    # the three deletions (left-aligned, so compared by length), each
+    # followed by the SNP it covers, with '*'
     assert [len(c.alleles[0]) for c in serial.calls] \
-        == [len(d.ref) for d in dels]
+        == [n for d in dels for n in (len(d.ref), 1)]
+    assert all(any(a.is_span_del for a in c.alleles)
+               for c in serial.calls[1::2])
     pooled, _ = _pooled(fasta, bams, cfg, device_service=device_service)
     assert pool_mod.SPAN_RERUNS == {"spans": 3}
     if device_service:
